@@ -1,0 +1,46 @@
+"""lammps_analysis_tpu_torch — the PyTorch/CUDA port of lammps_analysis_tpu.
+
+The JAX package (``lammps_analysis_tpu``) stays the reference; this package
+grows beside it slice by slice and imports neither it nor jax. The first
+slice is the radial distribution function: in-memory ingestion into an
+npy trajectory store, ``exp.run.RadialDistributionFunction(...)``, and the
+pair-distance histogram as a hand-written CUDA kernel for Hopper
+(``csrc/rdf_histogram.cu``) with a plain torch version beside it.
+
+Device-side work runs on ``torch.device(config.device)``, ``"cuda"`` by
+default; set ``config.device = "cpu"`` for the plain torch path.
+"""
+
+from __future__ import annotations
+
+import logging
+
+from .utils import units
+from .utils.config import config
+
+_LAZY = {
+    "Project": ("lammps_analysis_tpu_torch.project.project", "Project"),
+    "Experiment": ("lammps_analysis_tpu_torch.experiment.experiment", "Experiment"),
+}
+
+
+def __getattr__(name):
+    """Lazy top-level imports (keeps ``import lammps_analysis_tpu_torch`` light)."""
+    if name in _LAZY:
+        import importlib
+
+        module, attr = _LAZY[name]
+        return getattr(importlib.import_module(module), attr)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+
+
+__all__ = ["Project", "Experiment", "units", "config"]
+
+__version__ = "0.1.0"
+
+_log = logging.getLogger(__name__)
+if not _log.handlers:
+    _handler = logging.StreamHandler()
+    _handler.setFormatter(logging.Formatter("%(asctime)s %(name)s %(message)s"))
+    _log.addHandler(_handler)
+    _log.setLevel(logging.INFO)
