@@ -10,16 +10,22 @@ Phases, one line each (any failure raises and the exit code is not 0):
 0. environment: torch and CUDA versions, the card's name, compute capability
    and power limit, and which optional packages import (for the record: the
    port's main path needs none of them);
-1. build: nvcc compiles ``lammps_analysis_tpu_torch/csrc/*.cu`` for sm_90a;
-2. kernel vs plain: the CUDA pair-histogram kernel and its plain torch
-   version on the same seeded inputs on the card, equal bin for bin, with
-   both times (CUDA events, after a warm-up call);
-3. main path: a ``Project`` with a 10240-atom Na/Cl experiment ingested in
-   memory, ``exp.run.RadialDistributionFunction`` over 64 frames with 500
-   bins, checked to go through the kernel and never the plain version, to
-   give an ideal-gas g(r), and to be a cache hit when run again; then the
-   same path on a small input, on the card and on the CPU, giving the same
-   g(r).
+1. build: nvcc compiles ``lammps_analysis_tpu_torch/csrc/*.cu`` for sm_90a,
+   one nvcc per source, side by side;
+2. kernel vs plain, each kernel and its plain torch version on the same
+   seeded inputs on the card, with both times (CUDA events, after a warm-up
+   call):
+   * ``[2 kernel]`` the RDF pair histogram, equal bin for bin;
+   * ``[2 extract]`` the ADF neighbor extract, all six outputs equal;
+   * ``[2 angles]`` the ADF angle histogram on those lists: totals within
+     rtol 1e-5, at most max(2, size // 64) bins outside rtol 1e-4 (float32
+     atomics add in another order);
+3. main paths, each through ``Project`` -> in-memory ingest -> ``exp.run``,
+   checked to go through its kernels and never the plain versions, to give
+   the ideal gas's answer and to be a cache hit when run again, then run on
+   a small input on the card and on the CPU, which must agree:
+   * ``[3 main]`` the RDF, 64 frames x 10240 atoms, 500 bins;
+   * ``[3 adf]`` the ADF, 16 frames x 10240 atoms, cutoff 3.6 A, 500 bins.
 
 The second-to-last line is a JSON summary of the kernels, the last line the
 device record ``{"ok": true, "device": {...}}``. Without a CUDA device the
@@ -38,11 +44,18 @@ import time
 import numpy as np
 import torch
 
-KERNEL_SOURCE = "lammps_analysis_tpu_torch/csrc/rdf_histogram.cu"
-KERNEL_REPLACES = "lammps_analysis_tpu/ops/pallas_rdf.py:85"
+CSRC = "lammps_analysis_tpu_torch/csrc/"
+REPLACES = {
+    "rdf_histogram": "lammps_analysis_tpu/ops/pallas_rdf.py:85",
+    "adf_neighbor_extract": "lammps_analysis_tpu/ops/pallas_adf.py:221",
+    "adf_pairs_histogram": "lammps_analysis_tpu/ops/pallas_adf.py:1482",
+}
 
 # the bench workload of the JAX package: Na + Cl, box 40 A, cutoff 19.9 A
 BENCH = dict(counts=[5120, 5120], box=(40.0, 40.0, 40.0), cutoff=19.9, n_bins=500)
+# its ADF first-shell workload (bench.py:192-229): the same system, cutoff 3.6 A
+ADF = dict(counts=[5120, 5120], box=(40.0, 40.0, 40.0), cutoff=3.6, n_bins=500)
+ADF_RANGE = 3.15  # radians, ops/adf.py::ADF_BIN_RANGE
 
 
 def phase(name: str, message: str) -> None:
@@ -172,6 +185,118 @@ def kernel_vs_plain() -> dict:
     return results
 
 
+def hist_disagreement(ours, plain) -> tuple[float, int, float]:
+    """(relative error of the total, bins outside rtol 1e-4, max |diff|)."""
+    ours = np.asarray(ours, np.float64)
+    plain = np.asarray(plain, np.float64)
+    total = abs(ours.sum() - plain.sum()) / max(abs(plain.sum()), 1e-300)
+    bad = int((~np.isclose(ours, plain, rtol=1e-4, atol=1e-6)).sum())
+    return float(total), bad, float(np.abs(ours - plain).max())
+
+
+def check_hist(label: str, ours, plain) -> float:
+    """Hold an angle histogram to the ADF tolerance; its max |diff|."""
+    total, bad, max_diff = hist_disagreement(ours, plain)
+    allowed = max(2, np.asarray(plain).size // 64)
+    if not np.asarray(plain).sum() > 0 or total > 1e-5 or bad > allowed:
+        raise RuntimeError(
+            f"{label}: angle histograms disagree (total rel err {total:.3g}, "
+            f"{bad} bins outside rtol 1e-4, {allowed} allowed)"
+        )
+    return max_diff
+
+
+def adf_kernels_vs_plain() -> dict:
+    from lammps_analysis_tpu_torch.ops import adf_kernel
+    from lammps_analysis_tpu_torch.ops.adf import (
+        adf_pairs_histogram_reference,
+        neighbor_extract_reference,
+    )
+    from lammps_analysis_tpu_torch.parallel.sharded_ops import AdfPlan
+
+    d_box = 40.0 * 6.4 ** (1 / 3)  # 65536 atoms at the 10240-atom density
+    extract_cases = {
+        "a first shell 16x10240": dict(ADF, n_frames=16, reps=(20, 2)),
+        "b 3 species N=1000, padding, id >= S": dict(
+            counts=[400, 350, 245], box=(30.0, 33.0, 36.0), cutoff=5.9,
+            n_frames=3, reps=(20, 3),
+        ),
+        "c dense cluster, counts above K": dict(
+            counts=[2000], box=(10.0, 10.0, 10.0), cutoff=4.9, k_n=128,
+            n_frames=2, reps=(10, 2),
+        ),
+        "d 2x65536": dict(
+            counts=[32768, 32768], box=(d_box,) * 3, cutoff=3.6, n_frames=2,
+            reps=(10, 2),
+        ),
+    }
+    device = torch.device("cuda")
+    lists, results = {}, {}
+    for seed, (label, c) in enumerate(extract_cases.items(), start=10):
+        pos, sid = make_case(c["counts"], c["n_frames"], c["box"], seed, device)
+        n_species = len(c["counts"])
+        if label.startswith("b"):
+            sid[10:13] = n_species  # out of range: padding, as the kernel reads it
+        k_n = c.get("k_n") or AdfPlan(pos.shape[1], c["box"], c["cutoff"]).k_n
+        args = (pos, sid, c["box"], c["cutoff"], k_n, n_species)
+        ours = adf_kernel.neighbor_extract(*args)
+        plain = neighbor_extract_reference(*args)
+        torch.cuda.synchronize()
+        for name, a, b in zip(("rx", "ry", "rz", "d", "sid", "counts"), ours, plain):
+            if a.dtype != b.dtype or a.shape != b.shape or not torch.equal(a, b):
+                raise RuntimeError(f"extract {label}: {name} differs from the plain version")
+        counts = plain[5]
+        max_count = int(counts.max())
+        if max_count < 2 or (label.startswith("c") and max_count <= k_n):
+            raise RuntimeError(f"extract {label}: largest count {max_count} at K={k_n}")
+        ms = time_ms(lambda: adf_kernel.neighbor_extract(*args), c["reps"][0])
+        plain_ms = time_ms(lambda: neighbor_extract_reference(*args), c["reps"][1])
+        n = sum(c["counts"])
+        tests = c["n_frames"] * n * n
+        phase(
+            "2 extract",
+            f"{label}: K={k_n}, mean count {float(counts.float().mean()):.2f}, "
+            f"largest {max_count}, all six outputs equal, kernel {ms:.3f} ms "
+            f"({tests / ms / 1e6:.2f} G distance tests/s), plain {plain_ms:.3f} ms",
+        )
+        results[f"extract {label}"] = dict(max_diff=0.0, ms=ms, plain_ms=plain_ms)
+        lists[label[0]] = (ours, sid, n_species)
+        del plain
+
+    angle_cases = {
+        "a 2 species x 500 bins, p=4": ("a", 500, 4, True, (20, 2)),
+        "a p=0": ("a", 500, 0, True, (5, 1)),
+        "b 10 triples x 500 bins": ("b", 500, 4, True, (5, 1)),
+        "b global atomics, 10 triples x 6000 bins": ("b", 6000, 2, False, (5, 1)),
+        "c saturated lists": ("c", 500, 4, True, (5, 1)),
+        "d 2x65536": ("d", 500, 4, True, (10, 2)),
+    }
+    for label, (key, n_bins, p, shared, reps) in angle_cases.items():
+        (rx, ry, rz, d, sid_n, counts), sid, n_species = lists[key]
+        args = (rx, ry, rz, d, sid_n, counts, sid, n_bins, n_species, p)
+        uses_shared = adf_kernel.pairs_histogram_uses_shared(n_species, n_bins, rx.shape[2])
+        if uses_shared != shared:
+            raise RuntimeError(f"angles {label}: expected shared={shared}, got {uses_shared}")
+        ours = adf_kernel.adf_pairs_histogram(*args)
+        plain = adf_pairs_histogram_reference(*args)
+        torch.cuda.synchronize()
+        max_diff = check_hist(f"angles {label}", ours.cpu().numpy(), plain.cpu().numpy())
+        ms = time_ms(lambda: adf_kernel.adf_pairs_histogram(*args), reps[0])
+        plain_ms = time_ms(lambda: adf_pairs_histogram_reference(*args), reps[1])
+        listed = counts.clamp(max=rx.shape[2]).double()
+        pairs = float((listed * (listed - 1) / 2).sum())
+        phase(
+            "2 angles",
+            f"{label}: {'shared' if shared else 'global'} histogram, total "
+            f"{float(plain.double().sum()):.6g}, max |diff| {max_diff:.3g}, kernel "
+            f"{ms:.3f} ms ({pairs / ms / 1e6:.2f} G pair angles/s), plain {plain_ms:.3f} ms",
+        )
+        results[f"angles {label}"] = dict(max_diff=max_diff, ms=ms, plain_ms=plain_ms)
+    del lists
+    torch.cuda.empty_cache()
+    return results
+
+
 def ingest(root, counts, n_frames, box, seed):
     """A port Project under ``root`` with experiment ``e`` of seeded Na/Cl."""
     import lammps_analysis_tpu_torch as lt
@@ -255,22 +380,124 @@ def main_path(card: str) -> int:
     return launches
 
 
+def adf_main_path(card: str) -> dict:
+    from lammps_analysis_tpu_torch import config
+    from lammps_analysis_tpu_torch.memory.planner import BatchPlanner
+    from lammps_analysis_tpu_torch.ops import adf_kernel
+    from lammps_analysis_tpu_torch.ops.adf import (
+        adf_pairs_histogram_reference,
+        neighbor_extract_reference,
+    )
+
+    n_bins = ADF["n_bins"]
+    d_theta = ADF_RANGE / n_bins
+    theta = (np.arange(n_bins) + 0.5) * d_theta
+    keys = ("Na_Na_Na", "Na_Na_Cl", "Na_Cl_Cl", "Cl_Cl_Cl")
+    config.device = "cuda"
+    kw = dict(number_of_configurations=16, start=0, cutoff=ADF["cutoff"],
+              number_of_bins=n_bins, plot=False)
+    with tempfile.TemporaryDirectory() as root:
+        exp = ingest(root, ADF["counts"], 20, ADF["box"][0], seed=2025)
+        calculator = exp.run.AngularDistributionFunction
+        adf_kernel.neighbor_extract.launches = 0
+        adf_kernel.adf_pairs_histogram.launches = 0
+        neighbor_extract_reference.calls = 0
+        adf_pairs_histogram_reference.calls = 0
+        t0 = time.perf_counter()
+        result = calculator(**kw)
+        seconds = time.perf_counter() - t0
+        launches = {
+            "adf_neighbor_extract": adf_kernel.neighbor_extract.launches,
+            "adf_pairs_histogram": adf_kernel.adf_pairs_histogram.launches,
+        }
+        plain_calls = neighbor_extract_reference.calls + adf_pairs_histogram_reference.calls
+        if min(launches.values()) < 1 or plain_calls != 0:
+            raise RuntimeError(
+                f"adf main path: kernel launches {launches} and {plain_calls} plain "
+                "calls; it must go through the kernels alone"
+            )
+        n_batches = calculator.last_n_batches
+        for key in keys:
+            adf = np.asarray(result[key]["adf"])
+            if adf.shape != (n_bins,) or not np.all(np.isfinite(adf)):
+                raise RuntimeError(f"adf main path: {key} has shape {adf.shape} or non-finite values")
+            area = float(adf.sum() * d_theta)
+            if abs(area - n_batches) > 1e-4 * n_batches:
+                raise RuntimeError(f"adf main path: {key} integrates to {area}, not {n_batches} batches")
+        phase(
+            "3 adf",
+            f"ADF 16 frames x 10240 atoms x 500 bins, cutoff 3.6 A: {seconds:.3f} s wall, "
+            f"{n_batches} batches, K={calculator.last_k_n}, {calculator.last_n_passes} "
+            f"pass(es), launches {launches}, 0 plain calls, "
+            f"{calculator.last_throughput_pairs_per_s / 1e9:.3f} G atom pairs/s inside "
+            f"the calculator, every triple finite and integrating to {n_batches}, on {card}",
+        )
+
+        ideal = exp.run.AngularDistributionFunction(norm_power=0, **kw)
+        window = (theta >= 0.5) & (theta <= 2.6)
+        for key in keys:
+            adf = np.asarray(ideal[key]["adf"])
+            ratio = float(np.median(adf[window] / (n_batches * np.sin(theta[window]) / 2)))
+            if abs(ratio - 1.0) > 0.03:
+                raise RuntimeError(f"adf main path: {key} at p=0 is {ratio} x sin(theta)/2")
+            phase("3 adf", f"{key}, norm_power=0: median adf / (n_batches sin(theta)/2) "
+                  f"over 0.5-2.6 rad {ratio:.5f}")
+
+        before = (adf_kernel.neighbor_extract.launches, adf_kernel.adf_pairs_histogram.launches)
+        again = exp.run.AngularDistributionFunction(**kw)
+        after = (adf_kernel.neighbor_extract.launches, adf_kernel.adf_pairs_histogram.launches)
+        if after != before or again.data_dict != result.data_dict:
+            raise RuntimeError("adf main path: the second run was not a cache hit")
+        phase("3 adf", "second run: cache hit, no new launch")
+
+    # the same path on a small input, on the card and on the CPU, with one
+    # planner budget so both split the frames into the same batches
+    kw = dict(number_of_configurations=6, start=0, cutoff=3.6, number_of_bins=100, plot=False)
+    outputs = {}
+    for device in ("cuda", "cpu"):
+        config.device = device
+        with tempfile.TemporaryDirectory() as root:
+            exp = ingest(root, [300, 200], 6, 15.0, seed=8)
+            exp.planner = BatchPlanner(memory_budget_bytes=2**33)
+            outputs[device] = exp.run.AngularDistributionFunction(**kw).data_dict
+    config.device = "cuda"
+    for key in keys:
+        check_hist(f"adf small input {key}", outputs["cuda"][key]["adf"], outputs["cpu"][key]["adf"])
+    phase("3 adf", "small input (300 + 200 atoms, 6 frames, 3 batches): card and CPU "
+          "agree within the angle-histogram tolerance")
+    return launches
+
+
+def kernel_record(name: str, launches: int, cases: list, main: dict) -> dict:
+    return {
+        "name": name,
+        "route": "cuda",
+        "source": CSRC + name + ".cu",
+        "replaces": REPLACES[name],
+        "launches": launches,
+        "max_abs_err": max(c["max_diff"] for c in cases),
+        "ms": main["ms"],
+        "plain_ms": main["plain_ms"],
+    }
+
+
 def main() -> int:
     card = environment()
     build()
-    kernels = kernel_vs_plain()
-    launches = main_path(card)
-    main_case = kernels["m main path 64x10240"]
-    print(json.dumps({"kernels": [{
-        "name": "rdf_histogram",
-        "route": "cuda",
-        "source": KERNEL_SOURCE,
-        "replaces": KERNEL_REPLACES,
-        "launches": launches,
-        "max_abs_err": max(k["max_diff"] for k in kernels.values()),
-        "ms": main_case["ms"],
-        "plain_ms": main_case["plain_ms"],
-    }]}), flush=True)
+    rdf = kernel_vs_plain()
+    adf = adf_kernels_vs_plain()
+    rdf_launches = main_path(card)
+    adf_launches = adf_main_path(card)
+    extract = [v for k, v in adf.items() if k.startswith("extract")]
+    angles = [v for k, v in adf.items() if k.startswith("angles")]
+    print(json.dumps({"kernels": [
+        kernel_record("rdf_histogram", rdf_launches, list(rdf.values()),
+                      rdf["m main path 64x10240"]),
+        kernel_record("adf_neighbor_extract", adf_launches["adf_neighbor_extract"],
+                      extract, adf["extract a first shell 16x10240"]),
+        kernel_record("adf_pairs_histogram", adf_launches["adf_pairs_histogram"],
+                      angles, adf["angles a 2 species x 500 bins, p=4"]),
+    ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

@@ -1,11 +1,14 @@
 """lammps_analysis_tpu_torch — the PyTorch/CUDA port of lammps_analysis_tpu.
 
 The JAX package (``lammps_analysis_tpu``) stays the reference; this package
-grows beside it slice by slice and imports neither it nor jax. The first
-slice is the radial distribution function: in-memory ingestion into an
-npy trajectory store, ``exp.run.RadialDistributionFunction(...)``, and the
-pair-distance histogram as a hand-written CUDA kernel for Hopper
-(``csrc/rdf_histogram.cu``) with a plain torch version beside it.
+grows beside it slice by slice and imports neither it nor jax. It carries
+in-memory ingestion into an npy trajectory store,
+``exp.run.RadialDistributionFunction(...)`` on the pair-distance histogram
+(``csrc/rdf_histogram.cu``) and ``exp.run.AngularDistributionFunction(...)``
+on the neighbor extract and the angle histogram
+(``csrc/adf_neighbor_extract.cu``, ``csrc/adf_pairs_histogram.cu``): CUDA
+kernels written by hand for Hopper, each with a plain torch version beside
+it.
 
 Device-side work runs on ``torch.device(config.device)``, ``"cuda"`` by
 default; set ``config.device = "cpu"`` for the plain torch path.

@@ -29,9 +29,10 @@ BUILD_DIR = pathlib.Path(__file__).parent / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-fmad=false",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 )
+LINK_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-shared")
 
 _lock = threading.Lock()
 _library: ctypes.CDLL | None = None
@@ -57,18 +58,34 @@ def _sources() -> list[pathlib.Path]:
 
 def library_path() -> pathlib.Path:
     """Where the library for the current sources and flags lives."""
-    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
     for src in sorted(CSRC.glob("*.cu*")):
         digest.update(src.name.encode())
         digest.update(src.read_bytes())
     return BUILD_DIR / f"libport_kernels-{digest.hexdigest()[:16]}.so"
 
 
+def _run_all(cmds: list[list[str]]) -> str:
+    """Run the commands side by side; their joined output, or raise on a failure."""
+    procs = [
+        subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for cmd in cmds
+    ]
+    outputs = [proc.communicate()[0] for proc in procs]
+    for cmd, proc, out in zip(cmds, procs, outputs):
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed with exit code {proc.returncode}: {' '.join(cmd)}\n{out}"
+            )
+    return "".join(outputs)
+
+
 def build() -> pathlib.Path:
     """Compile the kernels unless a library for these sources exists.
 
-    nvcc's output (ptxas register and shared-memory usage) is kept beside
-    the library as ``<library>.log``.
+    One nvcc per source, all started together, then one link. nvcc's output
+    (ptxas register and shared-memory usage) is kept beside the library as
+    ``<library>.log``.
     """
     path = library_path()
     BUILD_DIR.mkdir(exist_ok=True)
@@ -76,17 +93,22 @@ def build() -> pathlib.Path:
         fcntl.flock(lock_file, fcntl.LOCK_EX)
         if path.exists():
             return path
-        tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, _sources())]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
+        tag = f"{path.stem}.{os.getpid()}"
+        objects = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in _sources()]
+        tmp = path.with_name(f"{tag}.so.tmp")
+        nvcc = _nvcc()
+        try:
+            log = _run_all([
+                [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+                for src, obj in zip(_sources(), objects)
+            ])
+            log += _run_all([[nvcc, *LINK_FLAGS, "-o", str(tmp), *map(str, objects)]])
+            path.with_name(path.name + ".log").write_text(log)
+            os.replace(tmp, path)
+        finally:
             tmp.unlink(missing_ok=True)
-            raise RuntimeError(
-                f"nvcc failed with exit code {proc.returncode}: {' '.join(cmd)}\n"
-                f"{proc.stderr}"
-            )
-        path.with_name(path.name + ".log").write_text(proc.stdout + proc.stderr)
-        os.replace(tmp, path)
+            for obj in objects:
+                obj.unlink(missing_ok=True)
     return path
 
 

@@ -1,1 +1,1 @@
-"""Device ops: the RDF pair histogram (CUDA kernel + plain torch version)."""
+"""Device ops: the RDF and ADF kernels' wrappers and their plain torch versions."""

@@ -1,0 +1,41 @@
+"""Minimum-image geometry shared by the pair kernels and their plain versions.
+
+Counterpart of ``lammps_analysis_tpu/ops/geometry.py::minimum_image`` in the
+form the port's kernels compute it: ``r - box * rint(r * (1/box))`` with the
+float32 reciprocal ``1/box`` computed once on the host (``box_scalars``), as
+the TPU kernels do (``pallas_rdf.py:161-163``, ``pallas_adf.py:372``). The
+JAX package's XLA path divides by the box instead; the two can differ for a
+displacement within about one float32 ulp of half a box.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+
+def box_scalars(box, what: str = "this kernel"):
+    """``(box (3,), 1/box (3,))`` as Python floats holding float32 values.
+
+    The reciprocals are float32 divisions, so a CUDA kernel handed these
+    floats and a torch version applying :func:`minimum_image` with them
+    round every step alike.
+    """
+    if box is None:
+        raise ValueError(
+            f"{what} applies the minimum image and needs a periodic box; "
+            "got box=None"
+        )
+    b = torch.as_tensor(box, dtype=torch.float32).cpu().numpy().reshape(-1)
+    if b.shape != (3,):
+        raise ValueError(f"box must hold 3 edge lengths, got shape {b.shape}")
+    ib = np.float32(1.0) / b
+    return tuple(map(float, b)), tuple(map(float, ib))
+
+
+def minimum_image(r: torch.Tensor, edge: float, inv_edge: float) -> torch.Tensor:
+    """One Cartesian component of displacements wrapped into the primary image.
+
+    ``torch.round`` rounds half to even, as ``rintf`` does in the kernels.
+    """
+    return r - edge * torch.round(r * inv_edge)

@@ -17,6 +17,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .geometry import box_scalars, minimum_image
+
 
 def build_species_layout(n_per_species: list[int], pad_to: int = 8):
     """Concatenated species layout: ids, padding, unordered-pair index table.
@@ -54,18 +56,10 @@ def rdf_scalars(box, cutoff: float, n_bins: int):
     holding float32 values: the reciprocals are float32 divisions, as the TPU
     kernel computes them (``pallas_rdf.py:161-163``).
     """
-    if box is None:
-        raise ValueError(
-            "the RDF pair histogram applies the minimum image and needs a "
-            "periodic box; got box=None"
-        )
-    b = torch.as_tensor(box, dtype=torch.float32).cpu().numpy().reshape(-1)
-    if b.shape != (3,):
-        raise ValueError(f"box must hold 3 edge lengths, got shape {b.shape}")
-    ib = np.float32(1.0) / b
+    b, ib = box_scalars(box, "the RDF pair histogram")
     cut = np.float32(cutoff)
     inv_bin = np.float32(n_bins) / cut
-    return tuple(map(float, b)), tuple(map(float, ib)), float(cut), float(inv_bin)
+    return b, ib, float(cut), float(inv_bin)
 
 
 def rdf_histogram_reference(
@@ -100,9 +94,9 @@ def rdf_histogram_reference(
         dx = x[:, i0:i1, None] - x[:, None, i0:]  # (F, B, N - i0)
         dy = y[:, i0:i1, None] - y[:, None, i0:]
         dz = z[:, i0:i1, None] - z[:, None, i0:]
-        dx = dx - bx * torch.round(dx * ibx)  # round half to even, as rint
-        dy = dy - by * torch.round(dy * iby)
-        dz = dz - bz * torch.round(dz * ibz)
+        dx = minimum_image(dx, bx, ibx)
+        dy = minimum_image(dy, by, iby)
+        dz = minimum_image(dz, bz, ibz)
         d = torch.sqrt(dx * dx + dy * dy + dz * dz)
 
         si = sid[i0:i1, None]  # (B, 1)

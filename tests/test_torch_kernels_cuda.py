@@ -1,8 +1,13 @@
-"""The CUDA pair-histogram kernel against its plain torch version, on a GPU.
+"""The CUDA kernels against their plain torch versions, on a GPU.
 
-Small versions of the kernel phase of ``chip_smoke.py``: the kernel
+Small versions of the kernel phase of ``chip_smoke.py``: the pair histogram
 (``csrc/rdf_histogram.cu`` through ``ops/rdf_kernel.py``) must equal
-``rdf_histogram_reference`` bin for bin on the same tensors on the card.
+``rdf_histogram_reference`` bin for bin, the neighbor extract
+(``csrc/adf_neighbor_extract.cu``) must equal ``neighbor_extract_reference``
+exactly, and the angle histogram (``csrc/adf_pairs_histogram.cu``) must
+agree with ``adf_pairs_histogram_reference`` within the JAX package's ADF
+tolerance (totals rtol 1e-5; at most max(2, size // 64) bins outside rtol
+1e-4: float32 atomics sum in another order), on the same tensors.
 Marked ``cuda``; without a CUDA device every test skips. On a machine with a
 card: ``python -m pytest tests/test_torch_kernels_cuda.py -m cuda``.
 """
@@ -11,7 +16,11 @@ import numpy as np
 import pytest
 import torch
 
-from lammps_analysis_tpu_torch.ops import rdf_kernel
+from lammps_analysis_tpu_torch.ops import adf_kernel, rdf_kernel
+from lammps_analysis_tpu_torch.ops.adf import (
+    adf_pairs_histogram_reference,
+    neighbor_extract_reference,
+)
 from lammps_analysis_tpu_torch.ops.rdf import build_species_layout, rdf_histogram_reference
 
 torch.set_num_threads(1)
@@ -69,3 +78,62 @@ def test_kernel_rejects_cpu_species_with_cuda_positions(cuda):
     pos, sid = _case([64], 1, (6.0, 6.0, 6.0), seed=1, device=cuda)
     with pytest.raises(ValueError, match="species_id on cpu"):
         rdf_kernel.rdf_histogram(pos, sid.cpu(), (6.0, 6.0, 6.0), 2.9, 10, 1)
+
+
+# ---------------------------------------------------------------- ADF, K2 and K3
+def _adf_lists(counts, n_frames, box, cutoff, k_n, seed, device):
+    pos, sid = _case(counts, n_frames, box, seed=seed, device=device)
+    return pos, sid, (pos, sid, box, cutoff, k_n, len(counts))
+
+
+@pytest.mark.parametrize(
+    "counts, n_frames, box, cutoff, k_n",
+    [
+        ([640, 640], 2, (20.0, 20.0, 20.0), 3.6, 48),  # first shell
+        ([400, 350, 245], 3, (30.0, 33.0, 36.0), 5.9, 88),  # ragged, padded
+        ([300], 1, (5.0, 5.0, 5.0), 2.4, 16),  # dense: counts exceed K
+        ([5], 1, (3.0, 3.0, 3.0), 2.9, 8),  # fewer atoms than one block
+    ],
+    ids=["first-shell", "ragged", "saturated", "tiny"],
+)
+def test_neighbor_extract_matches_plain_exactly(cuda, counts, n_frames, box, cutoff, k_n):
+    pos, sid, args = _adf_lists(counts, n_frames, box, cutoff, k_n, len(counts), cuda)
+    sid[1:3] = len(counts)  # out of range: padding
+    launches = adf_kernel.neighbor_extract.launches
+    ours = adf_kernel.neighbor_extract(*args)
+    torch.cuda.synchronize()
+    assert adf_kernel.neighbor_extract.launches == launches + 1
+    plain = neighbor_extract_reference(*args)
+    for a, b in zip(ours, plain):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        assert torch.equal(a, b)
+    assert int(plain[5].sum()) > 0
+
+
+@pytest.mark.parametrize(
+    "counts, n_bins, p, shared",
+    [
+        ([640, 640], 500, 4, True),
+        ([640, 640], 500, 0, True),
+        ([400, 350, 245], 500, 2, True),  # 10 triples
+        ([300, 300, 300, 300], 3000, 4, False),  # 20 triples x 3000 bins: global atomics
+    ],
+    ids=["2sp-p4", "2sp-p0", "3sp", "global-atomics"],
+)
+def test_pairs_histogram_matches_plain(cuda, counts, n_bins, p, shared):
+    box = (20.0, 21.0, 22.0)
+    pos, sid, args = _adf_lists(counts, 2, box, 3.9, 96, 11, cuda)
+    *lists, n_in = adf_kernel.neighbor_extract(*args)
+    assert int(n_in.max()) <= 96
+    s = len(counts)
+    assert adf_kernel.pairs_histogram_uses_shared(s, n_bins, 96) == shared
+    launches = adf_kernel.adf_pairs_histogram.launches
+    ours = adf_kernel.adf_pairs_histogram(*lists, n_in, sid, n_bins, s, p)
+    torch.cuda.synchronize()
+    assert adf_kernel.adf_pairs_histogram.launches == launches + 1
+    plain = adf_pairs_histogram_reference(*lists, n_in, sid, n_bins, s, p)
+    ours, plain = ours.double().cpu().numpy(), plain.double().cpu().numpy()
+    assert plain.sum() > 0
+    np.testing.assert_allclose(ours.sum(), plain.sum(), rtol=1e-5)
+    bad = ~np.isclose(ours, plain, rtol=1e-4, atol=1e-6)
+    assert bad.sum() <= max(2, plain.size // 64), f"{bad.sum()} bins differ"

@@ -42,7 +42,8 @@ def _imports(tree: ast.AST):
 
 def test_port_has_sources():
     assert len(SOURCES) > 20
-    assert (PORT / "csrc" / "rdf_histogram.cu").exists()
+    for kernel in ("rdf_histogram", "adf_neighbor_extract", "adf_pairs_histogram"):
+        assert (PORT / "csrc" / f"{kernel}.cu").exists()
 
 
 @pytest.mark.parametrize("path", SOURCES, ids=lambda p: str(p.relative_to(PORT)))

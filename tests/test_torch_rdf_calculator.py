@@ -142,7 +142,7 @@ def test_port_refuses_missing_gpu_and_files(tmp_path):
     with pytest.raises(NotImplementedError, match="LAMMPS-dump reader"):
         exp.add_data(tmp_path / "traj.lammpstraj")
     with pytest.raises(AttributeError, match="not .*ported|later slices"):
-        exp.run.AngularDistributionFunction
+        exp.run.EinsteinDiffusionCoefficients
     if torch.cuda.is_available():
         return  # the default device is there: nothing to refuse
     config.device = "cuda"
