@@ -13,23 +13,33 @@ Phases, one line each (any failure raises and the exit code is not 0):
 1. build: nvcc compiles ``lammps_analysis_tpu_torch/csrc/*.cu`` for sm_90a,
    one nvcc per source, side by side;
 2. kernel vs plain, each kernel and its plain torch version on the same
-   seeded inputs on the card, with both times (CUDA events, after a warm-up
-   call):
-   * ``[2 kernel]`` the RDF pair histogram, equal bin for bin;
-   * ``[2 extract]`` the ADF neighbor extract, all six outputs equal;
-   * ``[2 angles]`` the ADF angle histogram on those lists: totals within
-     rtol 1e-5, at most max(2, size // 64) bins outside rtol 1e-4 (float32
-     atomics add in another order);
+   seeded inputs on the card, with the kernel's device time (``torch.profiler``,
+   after a warm-up call), the plain version's time (CUDA events around
+   back-to-back calls) and the kernel's bound:
+   * ``[2 kernel]`` the RDF pair histogram in each of its histogram modes,
+     equal bin for bin;
+   * ``[2 extract]`` both routes of the ADF neighbor extract (the sweep and
+     the cell lists), all six outputs equal (a saturated binned case on the
+     rows that fit K and on ``counts``), with the routes' times side by side;
+   * ``[2 angles]`` the ADF angle histogram on those lists, K > 1024 too:
+     totals within rtol 1e-5, at most max(2, size // 64) bins outside rtol
+     1e-4 (float32 atomics add in another order);
 3. main paths, each through ``Project`` -> in-memory ingest -> ``exp.run``,
    checked to go through its kernels and never the plain versions, to give
    the ideal gas's answer and to be a cache hit when run again, then run on
    a small input on the card and on the CPU, which must agree:
    * ``[3 main]`` the RDF, 64 frames x 10240 atoms, 500 bins;
-   * ``[3 adf]`` the ADF, 16 frames x 10240 atoms, cutoff 3.6 A, 500 bins.
+   * ``[3 adf]`` the ADF, 16 frames x 10240 atoms, cutoff 3.6 A, 500 bins,
+     through the binned extract (16 launches, no sweep, no plain call);
+4. ``[4 profile]``: seven forced (not cached) calls of each main path on the
+   warm process (median wall), then one under ``torch.profiler``: device
+   time per kernel, the largest device consumers, and the share of the call
+   the device is busy.
 
-The second-to-last line is a JSON summary of the kernels, the last line the
-device record ``{"ok": true, "device": {...}}``. Without a CUDA device the
-script exits non-zero before printing either.
+The second-to-last line is a JSON summary of the kernels (times, launches on
+the main paths, bounds), the last line the device record ``{"ok": true,
+"device": {...}}``. Without a CUDA device the script exits non-zero before
+printing either.
 """
 
 from __future__ import annotations
@@ -47,9 +57,23 @@ import torch
 CSRC = "lammps_analysis_tpu_torch/csrc/"
 REPLACES = {
     "rdf_histogram": "lammps_analysis_tpu/ops/pallas_rdf.py:85",
+    "adf_neighbor_cells": "lammps_analysis_tpu/ops/pallas_adf.py:221",
     "adf_neighbor_extract": "lammps_analysis_tpu/ops/pallas_adf.py:221",
     "adf_pairs_histogram": "lammps_analysis_tpu/ops/pallas_adf.py:1482",
 }
+# each kernel record's device kernels, by a part of their symbol names
+DEVICE_KERNELS = {
+    "rdf_histogram": ("rdf_histogram_kernel",),
+    "adf_neighbor_cells": ("bin_atoms", "scan_counts", "scatter_atoms", "cells_extract"),
+    "adf_neighbor_extract": ("neighbor_extract_kernel",),
+    "adf_pairs_histogram": ("adf_pairs_kernel",),
+}
+
+RECORD_OF_ROUTE = {"binned": "adf_neighbor_cells", "sweep": "adf_neighbor_extract"}
+
+# published peaks of one H100 SXM (dense, float32 outside the tensor cores)
+PEAK_FP32_FLOPS = 67e12
+PEAK_HBM_BYTES = 3.35e12
 
 # the bench workload of the JAX package: Na + Cl, box 40 A, cutoff 19.9 A
 BENCH = dict(counts=[5120, 5120], box=(40.0, 40.0, 40.0), cutoff=19.9, n_bins=500)
@@ -122,6 +146,34 @@ def make_case(counts, n_frames, box, seed, device):
     return torch.from_numpy(pos).to(device), torch.from_numpy(sid).to(device)
 
 
+def device_ms(fn, reps: int, record: str) -> float:
+    """Mean device milliseconds per call of a kernel record's device kernels
+    (``DEVICE_KERNELS``), from ``torch.profiler`` over ``reps`` calls after a
+    warm-up call: the kernels' own time, free of the host's launch cost."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    # per kernel of the record: its mean over the launches the profiler saw
+    # (it may miss the first ones of a window)
+    total_us = 0.0
+    for part in DEVICE_KERNELS[record]:
+        spans = [
+            e.time_range.end - e.time_range.start
+            for e in prof.events()
+            if e.device_type == DeviceType.CUDA and part in e.name
+        ]
+        if not spans:
+            raise RuntimeError(f"the profiler saw no {part} kernel of {record}")
+        total_us += sum(spans) / len(spans)
+    return total_us / 1e3
+
+
 def time_ms(fn, reps: int) -> float:
     """Mean milliseconds per call on the card, after one warm-up call."""
     fn()
@@ -135,30 +187,41 @@ def time_ms(fn, reps: int) -> float:
     return start.elapsed_time(stop) / reps
 
 
+def bound(flops: float, n_bytes: float) -> tuple[float, str]:
+    """Least milliseconds the card needs: the larger of the float32 operations
+    over the float32 peak and the bytes moved over the memory rate."""
+    by_ops, by_bytes = flops / PEAK_FP32_FLOPS * 1e3, n_bytes / PEAK_HBM_BYTES * 1e3
+    return (by_ops, "operations") if by_ops >= by_bytes else (by_bytes, "bytes")
+
+
 def kernel_vs_plain() -> dict:
     from lammps_analysis_tpu_torch.ops import rdf_kernel
     from lammps_analysis_tpu_torch.ops.rdf import rdf_histogram_reference
 
     cases = {
-        "a bench 4x10240": dict(BENCH, n_frames=4, shared=True, reps=(20, 3)),
+        "a bench 4x10240": dict(BENCH, n_frames=4, mode="warp", reps=(20, 3)),
         "b ragged 3 species N=1000": dict(
             counts=[400, 350, 245], box=(30.0, 33.0, 36.0), cutoff=9.9, n_bins=75,
-            n_frames=3, shared=True, reps=(20, 3),
+            n_frames=3, mode="warp", reps=(20, 3),
         ),
         "c global atomics 4 species x 6000 bins": dict(
             counts=[500, 500, 500, 500], box=(30.0, 30.0, 30.0), cutoff=14.9,
-            n_bins=6000, n_frames=2, shared=False, reps=(10, 3),
+            n_bins=6000, n_frames=2, mode="global", reps=(10, 3),
         ),
-        "m main path 64x10240": dict(BENCH, n_frames=64, shared=True, reps=(5, 2)),
+        "e block histogram 2 species x 5000 bins": dict(
+            BENCH, n_bins=5000, n_frames=2, mode="block", reps=(10, 2),
+        ),
+        "m main path 64x10240": dict(BENCH, n_frames=64, mode="warp", reps=(5, 2)),
     }
     device = torch.device("cuda")
     results = {}
     for seed, (label, c) in enumerate(cases.items()):
         pos, sid = make_case(c["counts"], c["n_frames"], c["box"], seed, device)
-        args = (pos, sid, c["box"], c["cutoff"], c["n_bins"], len(c["counts"]))
-        shared = rdf_kernel.uses_shared_histogram(len(c["counts"]), c["n_bins"])
-        if shared != c["shared"]:
-            raise RuntimeError(f"case {label}: expected shared={c['shared']}, got {shared}")
+        n_species = len(c["counts"])
+        args = (pos, sid, c["box"], c["cutoff"], c["n_bins"], n_species)
+        mode = rdf_kernel.histogram_mode(n_species, c["n_bins"])
+        if mode != c["mode"]:
+            raise RuntimeError(f"case {label}: expected the {c['mode']} histogram, got {mode}")
         h_kernel = rdf_kernel.rdf_histogram(*args)
         h_plain = rdf_histogram_reference(*args)
         torch.cuda.synchronize()
@@ -169,17 +232,23 @@ def kernel_vs_plain() -> dict:
                 f"case {label}: kernel disagrees with the plain version "
                 f"(max |diff| {max_diff}, totals {total} vs {int(h_plain.sum())})"
             )
-        ms = time_ms(lambda: rdf_kernel.rdf_histogram(*args), c["reps"][0])
+        ms = device_ms(lambda: rdf_kernel.rdf_histogram(*args), c["reps"][0], "rdf_histogram")
         plain_ms = time_ms(lambda: rdf_histogram_reference(*args), c["reps"][1])
-        n = sum(c["counts"])
-        pairs = c["n_frames"] * n * (n - 1) / 2
+        n_atoms, n_valid = pos.shape[1], sum(c["counts"])
+        pairs = c["n_frames"] * n_valid * (n_valid - 1) / 2
+        # ~22 float32 operations a pair (3 differences, 3 minimum images of 4,
+        # the sum of squares, the compare), 2 more a kept pair (sqrt, bin)
+        flops = 22 * pairs + 2 * total
+        n_bytes = c["n_frames"] * n_atoms * 12 + n_atoms * 4 + h_kernel.numel() * 8
+        bound_ms, bound_by = bound(flops, n_bytes)
         phase(
             "2 kernel",
-            f"{label}: {'shared' if shared else 'global'} histogram, total "
-            f"{total}, max |diff| {max_diff}, kernel {ms:.3f} ms "
-            f"({pairs / ms / 1e6:.2f} Gpairs/s), plain {plain_ms:.3f} ms",
+            f"{label}: {mode} histogram, total {total}, max |diff| {max_diff}, kernel "
+            f"{ms:.3f} ms ({pairs / ms / 1e6:.2f} Gpairs/s), plain {plain_ms:.3f} ms, "
+            f"bound {bound_ms:.3f} ms ({bound_by}; {100 * bound_ms / ms:.1f} % of it)",
         )
-        results[label] = dict(max_diff=max_diff, ms=ms, plain_ms=plain_ms)
+        results[label] = dict(max_diff=max_diff, ms=ms, plain_ms=plain_ms,
+                              bound_ms=bound_ms, bound_by=bound_by)
         del pos, sid, h_kernel, h_plain
         torch.cuda.empty_cache()
     return results
@@ -206,6 +275,49 @@ def check_hist(label: str, ours, plain) -> float:
     return max_diff
 
 
+def place(pos, box, layout):
+    """Move atoms as a case's layout asks: ``faces`` puts a third of them on
+    x = a multiple of 3.6 A and two at exactly (L, L, L); ``unwrapped``
+    moves a third by (+L, -2L, +2L) and a fifth by -L."""
+    edges = torch.tensor(box, device=pos.device)
+    if layout == "faces":
+        pos[:, ::3, 0] = torch.floor(pos[:, ::3, 0] / 3.6) * np.float32(3.6)
+        pos[:, :2] = edges
+    elif layout == "unwrapped":
+        pos[:, ::3] += torch.tensor([1.0, -2.0, 2.0], device=pos.device) * edges
+        pos[:, 1::5] -= edges
+
+
+def binned_tests(pos, sid, box, cutoff, n_species) -> int:
+    """Distance tests the binned route makes on these inputs: for every cell,
+    its atoms times the atoms of its 27 neighbor cells."""
+    from lammps_analysis_tpu_torch.ops import cells
+
+    n = cells.cells_per_axis(box, cutoff)
+    cell = cells.cell_of_atoms(pos, sid, box, n, n_species)
+    occ = cells.cell_occupancy(cell, int(np.prod(n)))[:, :-1]
+    hood = torch.from_numpy(cells.neighbor_cells(n)).to(pos.device)
+    return int((occ * occ[:, hood].sum(-1)).sum())
+
+
+def extract_bound(route, pos, sid, box, cutoff, n_species, k_n, counts):
+    f, n, _ = pos.shape
+    tests = binned_tests(pos, sid, box, cutoff, n_species) if route == "binned" else f * n * n
+    # ~22 float32 operations a test (as the RDF's), the square root of a kept one
+    flops = 22 * tests + int(counts.sum())
+    n_bytes = f * n * 12 + n * 4 + f * n * k_n * 20 + f * n * 4
+    return bound(flops, n_bytes)
+
+
+def pairs_bound(counts, k_n, n_atoms, n_frames, n_hist):
+    listed = counts.clamp(max=k_n).double()
+    pairs = float((listed * (listed - 1) / 2).sum())
+    # ~30 float32 operations a pair: the dot product, the division, acos, the
+    # bin and the weight
+    n_bytes = float(listed.sum()) * 20 + n_frames * n_atoms * 4 + n_atoms * 4 + n_hist * 4
+    return pairs, bound(30 * pairs, n_bytes)
+
+
 def adf_kernels_vs_plain() -> dict:
     from lammps_analysis_tpu_torch.ops import adf_kernel
     from lammps_analysis_tpu_torch.ops.adf import (
@@ -214,87 +326,209 @@ def adf_kernels_vs_plain() -> dict:
     )
     from lammps_analysis_tpu_torch.parallel.sharded_ops import AdfPlan
 
+    routes = {"binned": adf_kernel.neighbor_extract_binned, "sweep": adf_kernel.neighbor_extract_sweep}
+    both = ("binned", "sweep")
     d_box = 40.0 * 6.4 ** (1 / 3)  # 65536 atoms at the 10240-atom density
     extract_cases = {
-        "a first shell 16x10240": dict(ADF, n_frames=16, reps=(20, 2)),
+        "a1 main-path launch 1x10240": dict(ADF, n_frames=1, routes=both, reps=(50, 3)),
+        "a first shell 16x10240": dict(ADF, n_frames=16, routes=both, reps=(20, 2)),
         "b 3 species N=1000, padding, id >= S": dict(
             counts=[400, 350, 245], box=(30.0, 33.0, 36.0), cutoff=5.9,
-            n_frames=3, reps=(20, 3),
+            n_frames=3, routes=both, reps=(20, 3),
         ),
         "c dense cluster, counts above K": dict(
             counts=[2000], box=(10.0, 10.0, 10.0), cutoff=4.9, k_n=128,
-            n_frames=2, reps=(10, 2),
+            n_frames=2, routes=("sweep",), reps=(10, 2),
         ),
         "d 2x65536": dict(
             counts=[32768, 32768], box=(d_box,) * 3, cutoff=3.6, n_frames=2,
-            reps=(10, 2),
+            routes=both, reps=(10, 2),
+        ),
+        "e L/cutoff = 10 exactly, atoms on cell faces": dict(
+            counts=[3000, 3000], box=(36.0, 36.0, 36.0), cutoff=3.6, n_frames=2,
+            layout="faces", routes=both, reps=(10, 2),
+        ),
+        "f unwrapped coordinates": dict(
+            counts=[3000, 3000], box=(36.0, 36.0, 36.0), cutoff=3.6, n_frames=2,
+            layout="unwrapped", routes=both, reps=(10, 2),
+        ),
+        "g saturated, binned": dict(
+            counts=[20000], box=(30.0, 30.0, 30.0), cutoff=3.2, k_n=96, n_frames=1,
+            routes=both, reps=(10, 2),
         ),
     }
     device = torch.device("cuda")
     lists, results = {}, {}
     for seed, (label, c) in enumerate(extract_cases.items(), start=10):
         pos, sid = make_case(c["counts"], c["n_frames"], c["box"], seed, device)
+        place(pos, c["box"], c.get("layout"))
         n_species = len(c["counts"])
         if label.startswith("b"):
             sid[10:13] = n_species  # out of range: padding, as the kernel reads it
         k_n = c.get("k_n") or AdfPlan(pos.shape[1], c["box"], c["cutoff"]).k_n
         args = (pos, sid, c["box"], c["cutoff"], k_n, n_species)
-        ours = adf_kernel.neighbor_extract(*args)
         plain = neighbor_extract_reference(*args)
-        torch.cuda.synchronize()
-        for name, a, b in zip(("rx", "ry", "rz", "d", "sid", "counts"), ours, plain):
-            if a.dtype != b.dtype or a.shape != b.shape or not torch.equal(a, b):
-                raise RuntimeError(f"extract {label}: {name} differs from the plain version")
         counts = plain[5]
+        fits = counts <= k_n
         max_count = int(counts.max())
-        if max_count < 2 or (label.startswith("c") and max_count <= k_n):
+        if max_count < 2 or (label[0] in "cg") != (max_count > k_n):
             raise RuntimeError(f"extract {label}: largest count {max_count} at K={k_n}")
-        ms = time_ms(lambda: adf_kernel.neighbor_extract(*args), c["reps"][0])
+        timed = {}
+        for route in c["routes"]:
+            ours = routes[route](*args)
+            torch.cuda.synchronize()
+            # a center above K: its count is exact, its slots unspecified on
+            # the binned route (the sweep keeps the first K, as the plain version)
+            rows = fits if route == "binned" else torch.ones_like(fits)
+            for name, a, b in zip(("rx", "ry", "rz", "d", "sid"), ours, plain):
+                if a.dtype != b.dtype or a.shape != b.shape or not torch.equal(a[rows], b[rows]):
+                    raise RuntimeError(f"extract {label}, {route}: {name} differs from the plain version")
+            if not torch.equal(ours[5], counts):
+                raise RuntimeError(f"extract {label}, {route}: counts differ from the plain version")
+            del ours
+            record = RECORD_OF_ROUTE[route]
+            ms = device_ms(lambda: routes[route](*args), c["reps"][0], record)
+            call_ms = time_ms(lambda: routes[route](*args), c["reps"][0])
+            bound_ms, bound_by = extract_bound(route, pos, sid, c["box"], c["cutoff"], n_species, k_n, counts)
+            timed[route] = dict(max_diff=0.0, ms=ms, call_ms=call_ms, bound_ms=bound_ms, bound_by=bound_by)
         plain_ms = time_ms(lambda: neighbor_extract_reference(*args), c["reps"][1])
-        n = sum(c["counts"])
-        tests = c["n_frames"] * n * n
+        for t in timed.values():
+            t["plain_ms"] = plain_ms
+        chosen = adf_kernel.extract_route(pos.shape[1], c["box"], c["cutoff"], k_n)
+        side = ", ".join(
+            f"{r} {t['ms']:.4f} ms on the device, {t['call_ms']:.4f} ms a call back to back "
+            f"(bound {t['bound_ms']:.4f} ms, {t['bound_by']})"
+            for r, t in timed.items()
+        )
         phase(
             "2 extract",
-            f"{label}: K={k_n}, mean count {float(counts.float().mean()):.2f}, "
-            f"largest {max_count}, all six outputs equal, kernel {ms:.3f} ms "
-            f"({tests / ms / 1e6:.2f} G distance tests/s), plain {plain_ms:.3f} ms",
+            f"{label}: K={k_n}, mean count {float(counts.float().mean()):.2f}, largest "
+            f"{max_count}, equal to the plain version ({'rows within K and counts' if not bool(fits.all()) else 'all six outputs'}); "
+            f"{side}; plain {plain_ms:.3f} ms; extract_route takes {chosen}",
         )
-        results[f"extract {label}"] = dict(max_diff=0.0, ms=ms, plain_ms=plain_ms)
-        lists[label[0]] = (ours, sid, n_species)
+        for route, t in timed.items():
+            results[f"extract {route} {label}"] = t
+        if label.split()[0] in ("a1", "a", "b", "c", "d"):
+            lists[label.split()[0]] = (plain[:5], counts, sid, n_species)
         del plain
+        torch.cuda.empty_cache()
+
+    # neighbor lists wider than 1024 (10 A box, 6 A cutoff): staged, then read
+    # from global memory
+    for key, n_atoms in (("k1", 1300), ("k2", 2000)):
+        pos, sid = make_case([n_atoms], 1, (10.0,) * 3, 40 + n_atoms, device)
+        *_, counts = neighbor_extract_reference(pos, sid, (10.0,) * 3, 6.0, 1, 1)
+        k_n = int(counts.max())
+        *found, counts = adf_kernel.neighbor_extract(pos, sid, (10.0,) * 3, 6.0, k_n, 1)
+        lists[key] = (found, counts, sid, 1)
 
     angle_cases = {
-        "a 2 species x 500 bins, p=4": ("a", 500, 4, True, (20, 2)),
-        "a p=0": ("a", 500, 0, True, (5, 1)),
-        "b 10 triples x 500 bins": ("b", 500, 4, True, (5, 1)),
-        "b global atomics, 10 triples x 6000 bins": ("b", 6000, 2, False, (5, 1)),
-        "c saturated lists": ("c", 500, 4, True, (5, 1)),
-        "d 2x65536": ("d", 500, 4, True, (10, 2)),
+        "a1 main-path launch, 1 frame": ("a1", 500, 4, ("shared", "staged"), (50, 2)),
+        "a 2 species x 500 bins, p=4": ("a", 500, 4, ("shared", "staged"), (20, 2)),
+        "a p=0": ("a", 500, 0, ("shared", "staged"), (5, 1)),
+        "b 10 triples x 500 bins": ("b", 500, 4, ("shared", "staged"), (5, 1)),
+        "b global atomics, 10 triples x 6000 bins": ("b", 6000, 2, ("global", "staged"), (5, 1)),
+        "c saturated lists": ("c", 500, 4, ("shared", "staged"), (5, 1)),
+        "d 2x65536": ("d", 500, 4, ("shared", "staged"), (10, 2)),
+        "k1 K > 1024, staged": ("k1", 500, 4, ("shared f64", "staged"), (3, 1)),
+        "k2 K > 1024, lists from global memory": ("k2", 500, 4, ("shared f64", "global"), (3, 1)),
     }
-    for label, (key, n_bins, p, shared, reps) in angle_cases.items():
-        (rx, ry, rz, d, sid_n, counts), sid, n_species = lists[key]
+    for label, (key, n_bins, p, where, reps) in angle_cases.items():
+        (rx, ry, rz, d, sid_n), counts, sid, n_species = lists[key]
         args = (rx, ry, rz, d, sid_n, counts, sid, n_bins, n_species, p)
-        uses_shared = adf_kernel.pairs_histogram_uses_shared(n_species, n_bins, rx.shape[2])
-        if uses_shared != shared:
-            raise RuntimeError(f"angles {label}: expected shared={shared}, got {uses_shared}")
+        k_n = rx.shape[2]
+        route = adf_kernel.pairs_histogram_route(n_species, n_bins, k_n)
+        if route != where:
+            raise RuntimeError(f"angles {label}: expected {where}, got {route}")
         ours = adf_kernel.adf_pairs_histogram(*args)
         plain = adf_pairs_histogram_reference(*args)
         torch.cuda.synchronize()
         max_diff = check_hist(f"angles {label}", ours.cpu().numpy(), plain.cpu().numpy())
-        ms = time_ms(lambda: adf_kernel.adf_pairs_histogram(*args), reps[0])
+        ms = device_ms(lambda: adf_kernel.adf_pairs_histogram(*args), reps[0], "adf_pairs_histogram")
         plain_ms = time_ms(lambda: adf_pairs_histogram_reference(*args), reps[1])
-        listed = counts.clamp(max=rx.shape[2]).double()
-        pairs = float((listed * (listed - 1) / 2).sum())
+        pairs, (bound_ms, bound_by) = pairs_bound(counts, k_n, rx.shape[1], rx.shape[0], plain.numel())
         phase(
             "2 angles",
-            f"{label}: {'shared' if shared else 'global'} histogram, total "
+            f"{label}: K={k_n}, histogram {route[0]}, lists {route[1]}, total "
             f"{float(plain.double().sum()):.6g}, max |diff| {max_diff:.3g}, kernel "
-            f"{ms:.3f} ms ({pairs / ms / 1e6:.2f} G pair angles/s), plain {plain_ms:.3f} ms",
+            f"{ms:.4f} ms ({pairs / ms / 1e6:.2f} G pair angles/s), plain {plain_ms:.3f} ms, "
+            f"bound {bound_ms:.4f} ms ({bound_by})",
         )
-        results[f"angles {label}"] = dict(max_diff=max_diff, ms=ms, plain_ms=plain_ms)
+        results[f"angles {label}"] = dict(max_diff=max_diff, ms=ms, plain_ms=plain_ms,
+                                          bound_ms=bound_ms, bound_by=bound_by)
     del lists
     torch.cuda.empty_cache()
     return results
+
+
+def forced_calls(label: str, fn, n: int = 7) -> float:
+    """Median wall milliseconds of ``n`` forced (not cached) calls on a warm
+    process, host clock around each call."""
+    walls = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        fn()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    phase(
+        "4 profile",
+        f"{label}: wall per call, median of {n} {float(np.median(walls)):.3f} ms "
+        f"(from {min(walls):.3f} to {max(walls):.3f} ms)",
+    )
+    return float(np.median(walls))
+
+
+def profile_call(label: str, fn) -> dict:
+    """Run ``fn`` once under ``torch.profiler``: device time and launches per
+    kernel record, and the share of the call the device was busy."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with record_function("profiled call"):
+            fn()
+            torch.cuda.synchronize()
+    events = prof.events()
+    call = next(e for e in events if e.name == "profiled call")
+    device = sorted(  # kernels, copies and fills; not the annotation itself
+        (e.time_range.start, e.time_range.end, e.name)
+        for e in events if e.device_type == DeviceType.CUDA and e.name != "profiled call"
+    )
+    busy, end = 0.0, float("-inf")
+    for start, stop, _ in device:  # union of the device's busy intervals
+        if stop > end:
+            busy += stop - max(start, end)
+            end = stop
+    wall_us = call.time_range.end - call.time_range.start
+    per_record = {}
+    for record, parts in DEVICE_KERNELS.items():
+        spans = [(a, b) for a, b, name in device if any(part in name for part in parts)]
+        if spans:
+            per_record[record] = dict(
+                device_ms=sum(b - a for a, b in spans) / 1e3,
+                kernels=len(spans),
+            )
+    by_name = {}
+    for start, stop, name in device:
+        short = name.replace("(anonymous namespace)::", "").split("(")[0].split("<")[0][-40:]
+        by_name[short] = by_name.get(short, 0.0) + stop - start
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+    phase(
+        "4 profile",
+        f"{label}: device time by kernel, largest first: "
+        + ", ".join(f"{name} {us / 1e3:.3f} ms" for name, us in top),
+    )
+    phase(
+        "4 profile",
+        f"{label}: {wall_us / 1e3:.3f} ms under the profiler, device busy "
+        f"{busy / 1e3:.3f} ms ({100 * busy / wall_us:.1f} % of the call, idle "
+        f"{100 - 100 * busy / wall_us:.1f} %); "
+        + "; ".join(
+            f"{name} {v['device_ms']:.3f} ms in {v['kernels']} device kernels"
+            for name, v in per_record.items()
+        ),
+    )
+    return per_record
 
 
 def ingest(root, counts, n_frames, box, seed):
@@ -321,7 +555,7 @@ def ingest(root, counts, n_frames, box, seed):
     )
 
 
-def main_path(card: str) -> int:
+def main_path(card: str) -> tuple[int, dict]:
     from lammps_analysis_tpu_torch import config
     from lammps_analysis_tpu_torch.ops import rdf_kernel
     from lammps_analysis_tpu_torch.ops.rdf import rdf_histogram_reference
@@ -363,6 +597,11 @@ def main_path(card: str) -> int:
         if rdf_kernel.launches != launches or again.data_dict != result.data_dict:
             raise RuntimeError("main path: the second run was not a cache hit")
         phase("3 main", "second run: cache hit, no new launch")
+        def forced():
+            return exp.run.RadialDistributionFunction(force=True, **kw)
+
+        forced_calls("RDF 64 frames x 10240 atoms, forced", forced)
+        profiled = profile_call("RDF 64 frames x 10240 atoms, forced", forced)
 
     # the same path on a small input, on the card and on the CPU
     small = dict(counts=[300, 200], n_frames=10, box=15.0)
@@ -377,10 +616,10 @@ def main_path(card: str) -> int:
     if outputs["cuda"] != outputs["cpu"]:
         raise RuntimeError("main path: g(r) on the card differs from the CPU's plain path")
     phase("3 main", "small input (300 + 200 atoms, 10 frames): card and CPU g(r) identical")
-    return launches
+    return launches, profiled
 
 
-def adf_main_path(card: str) -> dict:
+def adf_main_path(card: str) -> tuple[dict, dict]:
     from lammps_analysis_tpu_torch import config
     from lammps_analysis_tpu_torch.memory.planner import BatchPlanner
     from lammps_analysis_tpu_torch.ops import adf_kernel
@@ -399,22 +638,26 @@ def adf_main_path(card: str) -> dict:
     with tempfile.TemporaryDirectory() as root:
         exp = ingest(root, ADF["counts"], 20, ADF["box"][0], seed=2025)
         calculator = exp.run.AngularDistributionFunction
-        adf_kernel.neighbor_extract.launches = 0
-        adf_kernel.adf_pairs_histogram.launches = 0
+        counters = {
+            "adf_neighbor_cells": adf_kernel.neighbor_extract_binned,
+            "adf_neighbor_extract": adf_kernel.neighbor_extract_sweep,
+            "adf_pairs_histogram": adf_kernel.adf_pairs_histogram,
+        }
+        for fn in counters.values():
+            fn.launches = 0
         neighbor_extract_reference.calls = 0
         adf_pairs_histogram_reference.calls = 0
         t0 = time.perf_counter()
         result = calculator(**kw)
         seconds = time.perf_counter() - t0
-        launches = {
-            "adf_neighbor_extract": adf_kernel.neighbor_extract.launches,
-            "adf_pairs_histogram": adf_kernel.adf_pairs_histogram.launches,
-        }
+        launches = {name: fn.launches for name, fn in counters.items()}
         plain_calls = neighbor_extract_reference.calls + adf_pairs_histogram_reference.calls
-        if min(launches.values()) < 1 or plain_calls != 0:
+        expected = {"adf_neighbor_cells": 16, "adf_neighbor_extract": 0, "adf_pairs_histogram": 16}
+        if launches != expected or plain_calls != 0:
             raise RuntimeError(
                 f"adf main path: kernel launches {launches} and {plain_calls} plain "
-                "calls; it must go through the kernels alone"
+                f"calls; expected {expected} and none: the binned extract and the "
+                "angle kernel alone"
             )
         n_batches = calculator.last_n_batches
         for key in keys:
@@ -443,12 +686,17 @@ def adf_main_path(card: str) -> dict:
             phase("3 adf", f"{key}, norm_power=0: median adf / (n_batches sin(theta)/2) "
                   f"over 0.5-2.6 rad {ratio:.5f}")
 
-        before = (adf_kernel.neighbor_extract.launches, adf_kernel.adf_pairs_histogram.launches)
+        before = [fn.launches for fn in counters.values()]
         again = exp.run.AngularDistributionFunction(**kw)
-        after = (adf_kernel.neighbor_extract.launches, adf_kernel.adf_pairs_histogram.launches)
+        after = [fn.launches for fn in counters.values()]
         if after != before or again.data_dict != result.data_dict:
             raise RuntimeError("adf main path: the second run was not a cache hit")
         phase("3 adf", "second run: cache hit, no new launch")
+        def forced():
+            return exp.run.AngularDistributionFunction(force=True, **kw)
+
+        forced_calls("ADF 16 frames x 10240 atoms, forced", forced)
+        profiled = profile_call("ADF 16 frames x 10240 atoms, forced", forced)
 
     # the same path on a small input, on the card and on the CPU, with one
     # planner budget so both split the frames into the same batches
@@ -465,7 +713,7 @@ def adf_main_path(card: str) -> dict:
         check_hist(f"adf small input {key}", outputs["cuda"][key]["adf"], outputs["cpu"][key]["adf"])
     phase("3 adf", "small input (300 + 200 atoms, 6 frames, 3 batches): card and CPU "
           "agree within the angle-histogram tolerance")
-    return launches
+    return launches, profiled
 
 
 def kernel_record(name: str, launches: int, cases: list, main: dict) -> dict:
@@ -478,25 +726,60 @@ def kernel_record(name: str, launches: int, cases: list, main: dict) -> dict:
         "max_abs_err": max(c["max_diff"] for c in cases),
         "ms": main["ms"],
         "plain_ms": main["plain_ms"],
+        "bound_ms": main["bound_ms"],
+        "bound_by": main["bound_by"],
+        "library_ms": None,  # no single PyTorch call computes any of these
     }
 
 
+def walls() -> None:
+    """``--walls``: only the forced-call medians of both main paths, for an
+    A/B of two checkouts on one card (copy this script into the other
+    checkout and run it there too)."""
+    from lammps_analysis_tpu_torch import config
+
+    config.device = "cuda"
+    with tempfile.TemporaryDirectory() as root:
+        exp = ingest(root, BENCH["counts"], 100, BENCH["box"][0], seed=2024)
+        kw = dict(number_of_configurations=64, cutoff=BENCH["cutoff"],
+                  number_of_bins=BENCH["n_bins"], plot=False)
+        exp.run.RadialDistributionFunction(**kw)
+        forced_calls("RDF 64 frames x 10240 atoms, forced",
+                     lambda: exp.run.RadialDistributionFunction(force=True, **kw))
+    with tempfile.TemporaryDirectory() as root:
+        exp = ingest(root, ADF["counts"], 20, ADF["box"][0], seed=2025)
+        kw = dict(number_of_configurations=16, start=0, cutoff=ADF["cutoff"],
+                  number_of_bins=ADF["n_bins"], plot=False)
+        exp.run.AngularDistributionFunction(**kw)
+        forced_calls("ADF 16 frames x 10240 atoms, forced",
+                     lambda: exp.run.AngularDistributionFunction(force=True, **kw), n=15)
+
+
 def main() -> int:
+    if sys.argv[1:] == ["--walls"]:
+        environment()
+        walls()
+        return 0
     card = environment()
     build()
     rdf = kernel_vs_plain()
     adf = adf_kernels_vs_plain()
-    rdf_launches = main_path(card)
-    adf_launches = adf_main_path(card)
-    extract = [v for k, v in adf.items() if k.startswith("extract")]
-    angles = [v for k, v in adf.items() if k.startswith("angles")]
+    rdf_launches, _ = main_path(card)
+    adf_launches, _ = adf_main_path(card)
+
+    def cases(prefix):
+        return [v for k, v in adf.items() if k.startswith(prefix)]
+
+    one_frame = "a1 main-path launch 1x10240"
     print(json.dumps({"kernels": [
         kernel_record("rdf_histogram", rdf_launches, list(rdf.values()),
                       rdf["m main path 64x10240"]),
+        kernel_record("adf_neighbor_cells", adf_launches["adf_neighbor_cells"],
+                      cases("extract binned"), adf[f"extract binned {one_frame}"]),
         kernel_record("adf_neighbor_extract", adf_launches["adf_neighbor_extract"],
-                      extract, adf["extract a first shell 16x10240"]),
+                      cases("extract sweep"), adf[f"extract sweep {one_frame}"]),
         kernel_record("adf_pairs_histogram", adf_launches["adf_pairs_histogram"],
-                      angles, adf["angles a 2 species x 500 bins, p=4"]),
+                      cases("angles"), adf["angles a1 main-path launch, 1 frame"]),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -12,10 +12,17 @@
 // Slots come in ascending j, so the output is deterministic, and the plain
 // torch version in ops/adf.py (neighbor_extract_reference: a cumulative sum
 // of the in-cutoff mask, then a scatter) gives the same lists bit for bit.
-// The arithmetic is K1's (csrc/rdf_histogram.cu), each step an explicitly
-// rounded intrinsic, built with -fmad=false:
+// The arithmetic is K1's (csrc/rdf_histogram.cu, csrc/pair_math.cuh), each
+// step an explicitly rounded intrinsic, built with -fmad=false:
 //   dx = xj - xi;  dx = dx - bx * rint(dx * ibx)      (ibx = 1/bx in float32)
-//   d  = sqrt(dx*dx + dy*dy + dz*dz)                    (left to right)
+//   s  = dx*dx + dy*dy + dz*dz                          (left to right)
+//   kept when s <= t, t the squared-distance threshold of the cutoff
+//   (ops/geometry.py::squared_cutoff: exactly the pairs with sqrt(s) < cutoff);
+//   d  = sqrt(s), for kept pairs only
+//
+// This is the sweep route, for boxes with fewer than three cells of the
+// cutoff on some axis and for lists too wide for the binned route
+// (csrc/adf_neighbor_cells.cu); ops/adf_kernel.py::extract_route decides.
 //
 // Design. The TPU kernel compacted lanes with one-hot slot writes over
 // 128-lane chunks; here a warp does it with a ballot. One block of 8 warps
@@ -28,14 +35,16 @@
 // slots and writes the counts, so the wrapper allocates the outputs without
 // clearing them.
 //
-// What bounds it on this card: the N^2 distance tests per frame (1.7e9 at
-// 16 x 10240 atoms), about 20 instructions each; one shared-memory load feeds
-// four tests. The writes (~20 bytes per neighbor) are small beside that.
-// Later work: cell lists or a sorted, windowed sweep, measured against this.
+// What bounds it on this card: the N^2 distance tests per frame (1.05e8 at
+// 10240 atoms), about 22 float32 operations each; one shared-memory load
+// feeds four tests. The writes (~20 bytes per neighbor) are small beside
+// that. Tensor cores do not apply: the minimum image rounds each component.
 
 #include <cuda_runtime.h>
 
 #include <cstdint>
+
+#include "pair_math.cuh"
 
 namespace {
 
@@ -49,13 +58,9 @@ constexpr int64_t kMaxGridY = 65535;
 struct Params {
   float bx, by, bz;
   float ibx, iby, ibz;
-  float cutoff;
+  float t;  // squared-distance threshold of the cutoff
   int n_atoms, n_species, k_n;
 };
-
-__device__ __forceinline__ float min_image(float dx, float b, float ib) {
-  return __fsub_rn(dx, __fmul_rn(b, rintf(__fmul_rn(dx, ib))));
-}
 
 __global__ void __launch_bounds__(kThreads)
 neighbor_extract_kernel(const float* __restrict__ pos, const int* __restrict__ sid,
@@ -112,9 +117,8 @@ neighbor_extract_kernel(const float* __restrict__ pos, const int* __restrict__ s
         const float dx = min_image(__fsub_rn(a.x, cx[c]), p.bx, p.ibx);
         const float dy = min_image(__fsub_rn(a.y, cy[c]), p.by, p.iby);
         const float dz = min_image(__fsub_rn(a.z, cz[c]), p.bz, p.ibz);
-        const float d = __fsqrt_rn(__fadd_rn(
-            __fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)), __fmul_rn(dz, dz)));
-        const bool in = live[c] && sj >= 0 && j != ci[c] && d < p.cutoff;
+        const float s = squared_norm(dx, dy, dz);
+        const bool in = live[c] && sj >= 0 && j != ci[c] && s <= p.t;
         const unsigned int mask = __ballot_sync(0xffffffffu, in);
         if (in) {
           const int slot = found[c] + __popc(mask & below);
@@ -123,7 +127,7 @@ neighbor_extract_kernel(const float* __restrict__ pos, const int* __restrict__ s
             rx[o] = dx;
             ry[o] = dy;
             rz[o] = dz;
-            dd[o] = d;
+            dd[o] = __fsqrt_rn(s);
             sid_out[o] = sj;
           }
         }
@@ -154,16 +158,17 @@ extern "C" {
 // Writes the neighbor lists of positions (n_frames, n_atoms, 3) float32 with
 // species ids (n_atoms,) int32 into rx, ry, rz, d (n_frames, n_atoms, k_n)
 // float32, sid_out (n_frames, n_atoms, k_n) int32 and counts (n_frames,
-// n_atoms) int32, on `stream`. Allocates nothing and does not synchronise;
+// n_atoms) int32, on `stream`; t is the squared-distance threshold of the
+// cutoff. Allocates nothing and does not synchronise;
 // returns cudaGetLastError().
 int adf_neighbor_extract_launch(const void* positions, const void* species_id,
                                 void* rx, void* ry, void* rz, void* d,
                                 void* sid_out, void* counts, int64_t n_frames,
                                 int64_t n_atoms, int64_t n_species, int64_t k_n,
                                 float bx, float by, float bz, float ibx,
-                                float iby, float ibz, float cutoff,
+                                float iby, float ibz, float t,
                                 void* stream) {
-  const Params p{bx, by, bz, ibx, iby, ibz, cutoff,
+  const Params p{bx, by, bz, ibx, iby, ibz, t,
                  static_cast<int>(n_atoms), static_cast<int>(n_species),
                  static_cast<int>(k_n)};
   const auto s = static_cast<cudaStream_t>(stream);

@@ -23,19 +23,29 @@
 // Design. The TPU kernel ran each center's K x K tile through one-hot matrix
 // products on the MXU, with the weight split into two bf16 halves. Here one
 // warp takes one center at a time (a block of 8 warps walks 128 centers of
-// one frame): it stages the center's m = min(count, K) entries in its slice
-// of shared memory, then its lanes enumerate the m(m-1)/2 unordered pairs by
-// a flat index q: pair (j, (j + dist) mod m) with dist = q / m + 1 and
-// j = q mod m covers every unordered pair exactly once, with no idle lanes.
-// Weights go to a block-private float32 histogram in dynamic shared memory
-// (shared atomics), flushed into the frame's global histogram with float32
-// atomics, non-zero bins only. A histogram beyond the shared-memory opt-in
-// takes a second instantiation that adds straight into global memory.
+// one frame): its lanes enumerate the m(m-1)/2 unordered pairs of the
+// center's m = min(count, K) entries by a flat index q: pair (j, (j + dist)
+// mod m) with dist = q / m + 1 and j = q mod m covers every unordered pair
+// exactly once, with no idle lanes (q is 64-bit when m(m-1)/2 would pass
+// 2^31). Weights go to a block-private float32 histogram in dynamic shared
+// memory (shared atomics), flushed into the frame's global histogram with
+// float32 atomics, non-zero bins only.
+//
+// Instantiations, chosen by what fits a block's shared-memory opt-in: the
+// entries staged per warp in shared memory (8 warps x 5 x K x 4 bytes) and
+// the histogram there too; then the histogram alone, the warp reading its
+// center's entries straight from global memory (20 bytes x K, in L2); then
+// the staging alone with the histogram in global memory; then neither. So
+// any K, up to the atom count, runs on the card. From K = 256 on, the shared
+// histogram sums in double: a center then adds ~K^2 / 2 weights, and float32
+// bins that take 1e5 adds or more drift beyond the ADF's tolerance.
 //
 // What bounds it on this card: about 7.7e7 pair evaluations at 16 x 10240
 // atoms (~470 pairs per center at a first-shell cutoff), each an acosf, a
 // division and a shared atomic that contends on a few thousand bins; the
-// lists it reads (~20 bytes per slot) are a few hundred MB at most.
+// lists it reads (~20 bytes per slot) are a few hundred MB at most. Tensor
+// cores do not apply: the angle needs each pair's float32 dot product
+// rounded as the plain version rounds it.
 
 #include <cuda_runtime.h>
 
@@ -72,20 +82,56 @@ __device__ __forceinline__ float int_power(float x, int e) {
   return result;
 }
 
-template <bool kSharedHist>
+__device__ __forceinline__ int species_or_pad(int s, int n_species) {
+  return s >= 0 && s < n_species ? s : -1;
+}
+
+// Adds the angles of every unordered pair of one center's m entries (ex..es)
+// into target; called by all 32 lanes of a warp.
+template <typename Index, typename Acc>
+__device__ __forceinline__ void center_pairs(const float* ex, const float* ey,
+                                             const float* ez, const float* ed,
+                                             const int* es, int m, int sa,
+                                             const Params& p, Acc* target,
+                                             int lane) {
+  const Index n_pairs = static_cast<Index>(m) * (m - 1) / 2;
+  for (Index q = lane; q < n_pairs; q += 32) {
+    const Index dist = q / m + 1;
+    const int j = static_cast<int>(q - (dist - 1) * m);
+    const int kk = static_cast<int>(j + dist < m ? j + dist : j + dist - m);
+    const int sj = species_or_pad(es[j], p.n_species);
+    const int sk = species_or_pad(es[kk], p.n_species);
+    const int b = min(sj, sk), cc = max(sj, sk);
+    if (b < 0 || sa > b) continue;
+    const float g = __fadd_rn(__fadd_rn(__fmul_rn(ex[j], ex[kk]), __fmul_rn(ey[j], ey[kk])),
+                              __fmul_rn(ez[j], ez[kk]));
+    float denom = __fmul_rn(ed[j], ed[kk]);
+    denom = denom > 0.f ? denom : 1.f;
+    const float cosv = fminf(fmaxf(__fdiv_rn(g, denom), -1.f), 1.f);
+    const float theta = acosf(cosv);
+    const int bin = min(static_cast<int>(floorf(__fmul_rn(theta, p.inv_bw))), p.n_bins - 1);
+    float w = int_power(__frcp_rn(denom), p.norm_power);
+    if (sj == sk) w = __fadd_rn(w, w);
+    atomicAdd(&target[triple_index(sa, b, cc, p.n_species) * p.n_bins + bin], static_cast<Acc>(w));
+  }
+}
+
+// Acc: the type of the shared-memory histogram's bins (float, or double for
+// wide lists).
+template <typename Acc, bool kSharedHist, bool kStaged>
 __global__ void __launch_bounds__(kThreads)
 adf_pairs_kernel(const float* __restrict__ rx, const float* __restrict__ ry,
                  const float* __restrict__ rz, const float* __restrict__ dd,
                  const int* __restrict__ sid_n, const int* __restrict__ counts,
                  const int* __restrict__ sid_c, float* __restrict__ out,
                  const Params p) {
-  extern __shared__ float smem[];
+  extern __shared__ __align__(16) unsigned char smem[];
   const int k = p.k_n;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  // histogram first (kSharedHist), then each warp's staging slice
-  float* hist = smem;
-  float* wx = smem + (kSharedHist ? p.n_total_bins : 0) +
+  // histogram first (kSharedHist), then each warp's staging slice (kStaged)
+  Acc* hist = reinterpret_cast<Acc*>(smem);
+  float* wx = reinterpret_cast<float*>(smem + (kSharedHist ? p.n_total_bins * sizeof(Acc) : 0)) +
               static_cast<int64_t>(warp) * kStageFields * k;
   float* wy = wx + k;
   float* wz = wy + k;
@@ -94,10 +140,9 @@ adf_pairs_kernel(const float* __restrict__ rx, const float* __restrict__ ry,
 
   const int64_t frame_row = static_cast<int64_t>(blockIdx.y) * p.n_atoms;
   float* frame_out = out + static_cast<int64_t>(blockIdx.y) * p.n_total_bins;
-  float* target = kSharedHist ? hist : frame_out;
 
   if (kSharedHist) {
-    for (int b = threadIdx.x; b < p.n_total_bins; b += kThreads) hist[b] = 0.f;
+    for (int b = threadIdx.x; b < p.n_total_bins; b += kThreads) hist[b] = Acc(0);
     __syncthreads();
   }
 
@@ -107,41 +152,37 @@ adf_pairs_kernel(const float* __restrict__ rx, const float* __restrict__ ry,
     const int m = min(counts[frame_row + c], k);
     if (sa < 0 || sa >= p.n_species || m < 2) continue;  // warp-uniform
     const int64_t row = (frame_row + c) * k;
-    for (int t = lane; t < m; t += 32) {
-      wx[t] = rx[row + t];
-      wy[t] = ry[row + t];
-      wz[t] = rz[row + t];
-      wd[t] = dd[row + t];
-      const int s = sid_n[row + t];
-      ws[t] = s >= 0 && s < p.n_species ? s : -1;
+    const float *ex = rx + row, *ey = ry + row, *ez = rz + row, *ed = dd + row;
+    const int* es = sid_n + row;
+    if (kStaged) {
+      for (int t = lane; t < m; t += 32) {
+        wx[t] = ex[t];
+        wy[t] = ey[t];
+        wz[t] = ez[t];
+        wd[t] = ed[t];
+        ws[t] = es[t];
+      }
+      __syncwarp();
+      ex = wx, ey = wy, ez = wz, ed = wd, es = ws;
     }
-    __syncwarp();
-    const int n_pairs = m * (m - 1) / 2;
-    for (int q = lane; q < n_pairs; q += 32) {
-      const int dist = q / m + 1;
-      const int j = q - (dist - 1) * m;
-      const int kk = j + dist < m ? j + dist : j + dist - m;
-      const int sj = ws[j], sk = ws[kk];
-      const int b = min(sj, sk), cc = max(sj, sk);
-      if (b < 0 || sa > b) continue;
-      const float g = __fadd_rn(__fadd_rn(__fmul_rn(wx[j], wx[kk]), __fmul_rn(wy[j], wy[kk])),
-                                __fmul_rn(wz[j], wz[kk]));
-      float denom = __fmul_rn(wd[j], wd[kk]);
-      denom = denom > 0.f ? denom : 1.f;
-      const float cosv = fminf(fmaxf(__fdiv_rn(g, denom), -1.f), 1.f);
-      const float theta = acosf(cosv);
-      const int bin = min(static_cast<int>(floorf(__fmul_rn(theta, p.inv_bw))), p.n_bins - 1);
-      float w = int_power(__frcp_rn(denom), p.norm_power);
-      if (sj == sk) w = __fadd_rn(w, w);
-      atomicAdd(&target[triple_index(sa, b, cc, p.n_species) * p.n_bins + bin], w);
+    if (m <= 46340) {  // m(m-1)/2 < 2^31
+      if (kSharedHist) {
+        center_pairs<int>(ex, ey, ez, ed, es, m, sa, p, hist, lane);
+      } else {
+        center_pairs<int>(ex, ey, ez, ed, es, m, sa, p, frame_out, lane);
+      }
+    } else if (kSharedHist) {
+      center_pairs<int64_t>(ex, ey, ez, ed, es, m, sa, p, hist, lane);
+    } else {
+      center_pairs<int64_t>(ex, ey, ez, ed, es, m, sa, p, frame_out, lane);
     }
-    __syncwarp();  // the slice is read before the next center restages it
+    if (kStaged) __syncwarp();  // the slice is read before the next center restages it
   }
 
   if (kSharedHist) {
     __syncthreads();
     for (int b = threadIdx.x; b < p.n_total_bins; b += kThreads) {
-      const float v = hist[b];
+      const float v = static_cast<float>(hist[b]);
       if (v != 0.f) atomicAdd(&frame_out[b], v);
     }
   }
@@ -161,20 +202,66 @@ cudaError_t shared_limit(size_t* bytes) {
   return cudaSuccess;
 }
 
+// Which instantiation takes a histogram of n_total_bins with lists of width
+// k_n, and the dynamic shared memory it uses. The histogram in shared memory
+// comes before the staging: its atomics cost more than reading the entries
+// from L2. From K = kWideK on, a center adds some K^2 / 2 weights and a block
+// of 128 centers puts ~1e5 or more float32 adds on one bin, which drifts
+// beyond the ADF's rtol 1e-5; its shared histogram then sums in double.
+constexpr int64_t kWideK = 256;
+
+struct Route {
+  bool shared_hist, staged, wide;
+  size_t smem;
+};
+
+Route choose(int64_t n_total_bins, int64_t k_n, size_t limit) {
+  const size_t stage = stage_bytes(k_n);
+  const bool wide = k_n >= kWideK;
+  const size_t hist = static_cast<size_t>(n_total_bins) * (wide ? sizeof(double) : sizeof(float));
+  if (stage + hist <= limit) return {true, true, wide, stage + hist};
+  if (hist <= limit) return {true, false, wide, hist};
+  if (stage <= limit) return {false, true, false, stage};
+  return {false, false, false, 0};
+}
+
+template <typename Acc, bool kSharedHist, bool kStaged>
+cudaError_t launch_frames(const Route& r, const float* rx, const float* ry,
+                          const float* rz, const float* d, const int* sid_n,
+                          const int* counts, const int* sid_c, float* out,
+                          int64_t n_frames, const Params& p, cudaStream_t s) {
+  auto kernel = adf_pairs_kernel<Acc, kSharedHist, kStaged>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(r.smem));
+  if (err != cudaSuccess) return err;
+  const unsigned int blocks =
+      static_cast<unsigned int>((p.n_atoms + kCentersPerBlock - 1) / kCentersPerBlock);
+  const int64_t list = static_cast<int64_t>(p.n_atoms) * p.k_n;
+  for (int64_t f0 = 0; f0 < n_frames; f0 += kMaxGridY) {
+    const dim3 grid(blocks, static_cast<unsigned int>(
+                                n_frames - f0 < kMaxGridY ? n_frames - f0 : kMaxGridY));
+    kernel<<<grid, kThreads, r.smem, s>>>(
+        rx + f0 * list, ry + f0 * list, rz + f0 * list, d + f0 * list,
+        sid_n + f0 * list, counts + f0 * p.n_atoms, sid_c,
+        out + f0 * p.n_total_bins, p);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  return cudaSuccess;
+}
+
 }  // namespace
 
 extern "C" {
 
-// 1 if an n_total_bins histogram with lists of width k_n takes the
-// shared-memory path, 0 if it takes the global-atomics path, -1 if even the
-// staging of k_n slots per warp exceeds the shared-memory opt-in, -2 on a
-// CUDA error.
-int adf_pairs_histogram_uses_shared(int64_t n_total_bins, int64_t k_n) {
+// Bit 0: an n_total_bins histogram with lists of width k_n is kept in shared
+// memory; bit 1: the entries are staged there; bit 2: the shared histogram
+// sums in double. -2 on a CUDA error.
+int adf_pairs_histogram_route(int64_t n_total_bins, int64_t k_n) {
   size_t limit = 0;
   if (shared_limit(&limit) != cudaSuccess) return -2;
-  const size_t stage = stage_bytes(k_n);
-  if (stage > limit) return -1;
-  return stage + static_cast<size_t>(n_total_bins) * sizeof(float) <= limit ? 1 : 0;
+  const Route r = choose(n_total_bins, k_n, limit);
+  return (r.shared_hist ? 1 : 0) | (r.staged ? 2 : 0) | (r.wide ? 4 : 0);
 }
 
 // Adds the per-frame angle histograms of the neighbor lists rx, ry, rz, d
@@ -196,44 +283,28 @@ int adf_pairs_histogram_launch(const void* rx, const void* ry, const void* rz,
   size_t limit = 0;
   cudaError_t err = shared_limit(&limit);
   if (err != cudaSuccess) return err;
-  const size_t stage = stage_bytes(k_n);
-  if (stage > limit) return cudaErrorInvalidValue;
-  const size_t hist_bytes = static_cast<size_t>(p.n_total_bins) * sizeof(float);
-  const bool shared = stage + hist_bytes <= limit;
-  const size_t smem = shared ? stage + hist_bytes : stage;
-  if (shared) {
-    err = cudaFuncSetAttribute(adf_pairs_kernel<true>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(smem));
+  const Route r = choose(p.n_total_bins, k_n, limit);
+  const auto s = static_cast<cudaStream_t>(stream);
+  const auto* fx = static_cast<const float*>(rx);
+  const auto* fy = static_cast<const float*>(ry);
+  const auto* fz = static_cast<const float*>(rz);
+  const auto* fd = static_cast<const float*>(d);
+  const auto* fs = static_cast<const int*>(sid_n);
+  const auto* fc = static_cast<const int*>(counts);
+  const auto* sc = static_cast<const int*>(sid_c);
+  auto* fo = static_cast<float*>(out);
+  if (r.shared_hist && r.staged) {
+    err = r.wide ? launch_frames<double, true, true>(r, fx, fy, fz, fd, fs, fc, sc, fo, n_frames, p, s)
+                 : launch_frames<float, true, true>(r, fx, fy, fz, fd, fs, fc, sc, fo, n_frames, p, s);
+  } else if (r.shared_hist) {
+    err = r.wide ? launch_frames<double, true, false>(r, fx, fy, fz, fd, fs, fc, sc, fo, n_frames, p, s)
+                 : launch_frames<float, true, false>(r, fx, fy, fz, fd, fs, fc, sc, fo, n_frames, p, s);
+  } else if (r.staged) {
+    err = launch_frames<float, false, true>(r, fx, fy, fz, fd, fs, fc, sc, fo, n_frames, p, s);
   } else {
-    err = cudaFuncSetAttribute(adf_pairs_kernel<false>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(smem));
+    err = launch_frames<float, false, false>(r, fx, fy, fz, fd, fs, fc, sc, fo, n_frames, p, s);
   }
   if (err != cudaSuccess) return err;
-  const auto s = static_cast<cudaStream_t>(stream);
-  const unsigned int blocks =
-      static_cast<unsigned int>((n_atoms + kCentersPerBlock - 1) / kCentersPerBlock);
-  const int64_t list = n_atoms * k_n;
-  for (int64_t f0 = 0; f0 < n_frames; f0 += kMaxGridY) {
-    const dim3 grid(blocks, static_cast<unsigned int>(
-                                n_frames - f0 < kMaxGridY ? n_frames - f0 : kMaxGridY));
-    const float* fx = static_cast<const float*>(rx) + f0 * list;
-    const float* fy = static_cast<const float*>(ry) + f0 * list;
-    const float* fz = static_cast<const float*>(rz) + f0 * list;
-    const float* fd = static_cast<const float*>(d) + f0 * list;
-    const int* fs = static_cast<const int*>(sid_n) + f0 * list;
-    const int* fc = static_cast<const int*>(counts) + f0 * n_atoms;
-    const int* sc = static_cast<const int*>(sid_c);
-    float* fo = static_cast<float*>(out) + f0 * n_triples * n_bins;
-    if (shared) {
-      adf_pairs_kernel<true><<<grid, kThreads, smem, s>>>(fx, fy, fz, fd, fs, fc, sc, fo, p);
-    } else {
-      adf_pairs_kernel<false><<<grid, kThreads, smem, s>>>(fx, fy, fz, fd, fs, fc, sc, fo, p);
-    }
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return err;
-  }
   return cudaGetLastError();
 }
 

@@ -4,7 +4,8 @@ Counterpart of ``lammps_analysis_tpu/ops/adf.py`` and of the two Pallas
 stages in ``lammps_analysis_tpu/ops/pallas_adf.py``:
 
 * ``neighbor_extract_reference`` is the plain version of the CUDA neighbor
-  extract (``csrc/adf_neighbor_extract.cu``, K2): for every center, every
+  extract (K2, both routes: the sweep ``csrc/adf_neighbor_extract.cu`` and
+  the cell lists ``csrc/adf_neighbor_cells.cu``): for every center, every
   other atom inside the cutoff, in ascending atom order, in K slots;
 * ``adf_pairs_histogram_reference`` is the plain version of the CUDA angle
   histogram (``csrc/adf_pairs_histogram.cu``, K3): for every center and

@@ -1,20 +1,31 @@
-"""Wrappers of the two CUDA ADF kernels.
+"""Wrappers of the three CUDA ADF kernels, and the neighbor extract's route.
 
-``neighbor_extract`` wraps ``csrc/adf_neighbor_extract.cu`` (counterpart of
-``lammps_analysis_tpu/ops/pallas_adf.py::_neighbor_extract_pallas``) and
-``adf_pairs_histogram`` wraps ``csrc/adf_pairs_histogram.cu`` (counterpart of
-``adf_pairs_histogram_pallas`` with ``fold=True``). Each checks its inputs,
-then launches its kernel on CUDA tensors or runs its plain torch version
-(``ops/adf.py``) on CPU tensors; a CUDA tensor never falls back. The kernel
-library builds from the checkout's sources at first use (``_build.py``).
+The neighbor extract (counterpart of
+``lammps_analysis_tpu/ops/pallas_adf.py::_neighbor_extract_pallas``) has two
+routes with one contract, ``ops/adf.py::neighbor_extract_reference``'s:
 
-``neighbor_extract.launches`` and ``adf_pairs_histogram.launches`` count the
-kernel launches made through each wrapper.
+* ``neighbor_extract_binned`` wraps ``csrc/adf_neighbor_cells.cu``: cell
+  lists, 27 neighbor cells per center;
+* ``neighbor_extract_sweep`` wraps ``csrc/adf_neighbor_extract.cu``: every
+  center against every atom.
+
+``neighbor_extract`` takes the route that ``extract_route`` names, a pure
+function of the shapes. ``adf_pairs_histogram`` wraps
+``csrc/adf_pairs_histogram.cu`` (counterpart of ``adf_pairs_histogram_pallas``
+with ``fold=True``). Each wrapper checks its inputs, then launches its kernel
+on CUDA tensors or runs the plain torch version (``ops/adf.py``) on CPU
+tensors; a CUDA tensor never falls back. The kernel library builds from the
+checkout's sources at first use (``_build.py``).
+
+``neighbor_extract_binned.launches``, ``neighbor_extract_sweep.launches`` and
+``adf_pairs_histogram.launches`` count the kernel launches made through each
+wrapper.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import numpy as np
 import torch
@@ -26,13 +37,20 @@ from .adf import (
     n_triples_for,
     neighbor_extract_reference,
 )
-from .geometry import box_scalars
+from .cells import cell_lists_applicable, cells_per_axis
+from .geometry import box_scalars, squared_cutoff
 
-#: widest neighbor list the angle kernel stages (8 warps x 5 x K x 4 bytes
-#: of shared memory must fit a block's opt-in)
-MAX_K = 1024
+#: fewest atoms for which the binned route is taken: the smallest frame at
+#: which ``chip_smoke.py`` times both routes (1000 atoms), where the binned
+#: route's device time already beats the sweep's (PERF.md)
+BINNED_MIN_ATOMS = 1000
+
+#: widest neighbor list the binned route stages (``kMaxK`` in
+#: ``csrc/adf_neighbor_cells.cu``: 4 warps x 16 centers x K ints of shared memory)
+BINNED_MAX_K = 512
 
 
+@functools.cache
 def _library() -> ctypes.CDLL:
     lib = _build.load_library()
     lib.adf_neighbor_extract_launch.argtypes = (
@@ -42,14 +60,23 @@ def _library() -> ctypes.CDLL:
         + [ctypes.c_void_p]
     )
     lib.adf_neighbor_extract_launch.restype = ctypes.c_int
+    lib.adf_neighbor_cells_launch.argtypes = (
+        [ctypes.c_void_p] * 10
+        + [ctypes.c_int64] * 7
+        + [ctypes.c_float] * 7
+        + [ctypes.c_void_p]
+    )
+    lib.adf_neighbor_cells_launch.restype = ctypes.c_int
+    lib.adf_neighbor_cells_scratch_ints.argtypes = [ctypes.c_int64, ctypes.c_int64]
+    lib.adf_neighbor_cells_scratch_ints.restype = ctypes.c_int64
     lib.adf_pairs_histogram_launch.argtypes = (
         [ctypes.c_void_p] * 8
         + [ctypes.c_int64] * 6
         + [ctypes.c_float, ctypes.c_void_p]
     )
     lib.adf_pairs_histogram_launch.restype = ctypes.c_int
-    lib.adf_pairs_histogram_uses_shared.argtypes = [ctypes.c_int64, ctypes.c_int64]
-    lib.adf_pairs_histogram_uses_shared.restype = ctypes.c_int
+    lib.adf_pairs_histogram_route.argtypes = [ctypes.c_int64, ctypes.c_int64]
+    lib.adf_pairs_histogram_route.restype = ctypes.c_int
     lib.rdf_cuda_error_string.argtypes = [ctypes.c_int]
     lib.rdf_cuda_error_string.restype = ctypes.c_char_p
     return lib
@@ -81,6 +108,68 @@ def _raise_on(err: int, lib, what: str) -> None:
         )
 
 
+def extract_route(n_atoms: int, box, cutoff: float, k_n: int) -> str:
+    """``"binned"`` or ``"sweep"``: the neighbor extract's route for this shape.
+
+    Binned when the box holds three or more cells on every axis
+    (``ops/cells.py``), the frame has at least ``BINNED_MIN_ATOMS`` atoms and
+    K is at most ``BINNED_MAX_K``; the sweep otherwise.
+    """
+    if (
+        n_atoms >= BINNED_MIN_ATOMS
+        and k_n <= BINNED_MAX_K
+        and cell_lists_applicable(box, cutoff)
+    ):
+        return "binned"
+    return "sweep"
+
+
+def _check_extract(positions, species_id, cutoff, k_n, n_species) -> None:
+    if not isinstance(positions, torch.Tensor):
+        raise TypeError("positions must be a torch tensor")
+    if positions.dim() != 3 or positions.shape[2] != 3:
+        raise ValueError(f"positions must have shape (F, N, 3), got {tuple(positions.shape)}")
+    device = positions.device
+    _check_tensor("positions", positions, torch.float32, positions.shape, device)
+    _check_tensor("species_id", species_id, torch.int32, (positions.shape[1],), device)
+    if not cutoff > 0 or k_n < 1 or n_species < 1:
+        raise ValueError(
+            f"need cutoff > 0, k_n >= 1, n_species >= 1; got {cutoff}, {k_n}, {n_species}"
+        )
+    if positions.shape[1] >= 2**31:
+        raise ValueError(f"{positions.shape[1]} atoms: the kernels index atoms with int32")
+
+
+def _empty_lists(n_frames, n_atoms, k_n, device, extra_floats=0, extra_ints=0):
+    """``(rx, ry, rz, d, sid, counts)`` uncleared, from two allocations, with
+    ``extra_floats`` (16-byte aligned) and ``extra_ints`` more of scratch."""
+    size = n_frames * n_atoms * k_n
+    floats = torch.empty(4 * size + extra_floats, dtype=torch.float32, device=device)
+    ints = torch.empty(size + n_frames * n_atoms + extra_ints, dtype=torch.int32, device=device)
+    lists = floats[: 4 * size].view(4, n_frames, n_atoms, k_n).unbind(0)
+    sid_n = ints[:size].view(n_frames, n_atoms, k_n)
+    counts = ints[size : size + n_frames * n_atoms].view(n_frames, n_atoms)
+    return (*lists, sid_n, counts), floats[4 * size :], ints[size + n_frames * n_atoms :]
+
+
+@functools.lru_cache(maxsize=64)
+def _extract_geometry(box: tuple, cutoff: float):
+    """``(box, 1/box, squared-cutoff threshold, cells per axis)`` of a box
+    given as a tuple of 3 floats."""
+    b, ib = box_scalars(box, "the neighbor extract")
+    return b, ib, squared_cutoff(cutoff), cells_per_axis(b, cutoff)
+
+
+def _box_key(box) -> tuple:
+    """The box as a tuple of floats, the cache key of ``_extract_geometry``."""
+    if box is None:
+        raise ValueError(
+            "the neighbor extract applies the minimum image and needs a periodic box; "
+            "got box=None"
+        )
+    return tuple(float(x) for x in np.asarray(box, dtype=np.float64).reshape(-1))
+
+
 def neighbor_extract(
     positions: torch.Tensor,
     species_id: torch.Tensor,
@@ -96,51 +185,101 @@ def neighbor_extract(
     The contract is ``ops/adf.py::neighbor_extract_reference``'s: ``(F, N,
     k_n)`` lists in ascending neighbor order, empty slots 0 and sid -1, and
     ``counts`` ``(F, N)`` int32 the true in-cutoff count (above ``k_n`` the
-    list is cut: the caller retries with a larger K).
+    list is cut: the caller retries with a larger K). On CUDA tensors the
+    route is ``extract_route``'s.
     """
-    if not isinstance(positions, torch.Tensor):
-        raise TypeError("positions must be a torch tensor")
-    if positions.dim() != 3 or positions.shape[2] != 3:
-        raise ValueError(f"positions must have shape (F, N, 3), got {tuple(positions.shape)}")
-    n_frames, n_atoms, _ = positions.shape
-    device = positions.device
-    _check_tensor("positions", positions, torch.float32, positions.shape, device)
-    _check_tensor("species_id", species_id, torch.int32, (n_atoms,), device)
-    if not cutoff > 0 or k_n < 1 or n_species < 1:
-        raise ValueError(
-            f"need cutoff > 0, k_n >= 1, n_species >= 1; got {cutoff}, {k_n}, {n_species}"
-        )
-    if n_atoms >= 2**31:
-        raise ValueError(f"{n_atoms} atoms: the kernel indexes atoms with int32")
-    if device.type == "cpu":
+    _check_extract(positions, species_id, cutoff, k_n, n_species)
+    route = extract_route(positions.shape[1], box, cutoff, k_n)
+    extract = neighbor_extract_binned if route == "binned" else neighbor_extract_sweep
+    return extract(positions, species_id, box, cutoff, k_n, n_species)
+
+
+def neighbor_extract_sweep(
+    positions: torch.Tensor,
+    species_id: torch.Tensor,
+    box,
+    cutoff: float,
+    k_n: int,
+    n_species: int,
+):
+    """:func:`neighbor_extract` through the sweep kernel, on any box."""
+    _check_extract(positions, species_id, cutoff, k_n, n_species)
+    if positions.device.type == "cpu":
         return neighbor_extract_reference(
             positions, species_id, box, cutoff, k_n, n_species
         )
+    device = positions.device
     _check_device(device)
-    (bx, by, bz), (ibx, iby, ibz) = box_scalars(box, "the neighbor extract")
-    lists = [
-        torch.empty((n_frames, n_atoms, k_n), dtype=torch.float32, device=device)
-        for _ in range(4)
-    ]
-    sid_n = torch.empty((n_frames, n_atoms, k_n), dtype=torch.int32, device=device)
-    counts = torch.empty((n_frames, n_atoms), dtype=torch.int32, device=device)
+    (bx, by, bz), (ibx, iby, ibz), threshold, _ = _extract_geometry(_box_key(box), cutoff)
+    n_frames, n_atoms, _ = positions.shape
+    out, _, _ = _empty_lists(n_frames, n_atoms, k_n, device)
     if n_frames == 0 or n_atoms == 0:
-        return (*lists, sid_n, counts)
+        return out
     lib = _library()
     with torch.cuda.device(device):
         err = lib.adf_neighbor_extract_launch(
-            positions.data_ptr(), species_id.data_ptr(),
-            *(t.data_ptr() for t in lists), sid_n.data_ptr(), counts.data_ptr(),
+            positions.data_ptr(), species_id.data_ptr(), *(t.data_ptr() for t in out),
             n_frames, n_atoms, n_species, k_n,
-            bx, by, bz, ibx, iby, ibz, float(np.float32(cutoff)),
+            bx, by, bz, ibx, iby, ibz, threshold,
             torch.cuda.current_stream(device).cuda_stream,
         )
     _raise_on(err, lib, "adf_neighbor_extract")
-    neighbor_extract.launches += 1
-    return (*lists, sid_n, counts)
+    neighbor_extract_sweep.launches += 1
+    return out
 
 
-neighbor_extract.launches = 0
+neighbor_extract_sweep.launches = 0
+
+
+def neighbor_extract_binned(
+    positions: torch.Tensor,
+    species_id: torch.Tensor,
+    box,
+    cutoff: float,
+    k_n: int,
+    n_species: int,
+):
+    """:func:`neighbor_extract` through the cell-list kernel.
+
+    Needs three or more cells on every axis and ``k_n <= BINNED_MAX_K`` on
+    CUDA tensors (``ValueError`` otherwise); coordinates may lie in any image.
+    """
+    _check_extract(positions, species_id, cutoff, k_n, n_species)
+    if positions.device.type == "cpu":
+        return neighbor_extract_reference(
+            positions, species_id, box, cutoff, k_n, n_species
+        )
+    device = positions.device
+    _check_device(device)
+    (bx, by, bz), (ibx, iby, ibz), threshold, n_cells = _extract_geometry(_box_key(box), cutoff)
+    if min(n_cells) < 3 or k_n > BINNED_MAX_K:
+        raise ValueError(
+            f"the binned extract needs >= 3 cells per axis and k_n <= {BINNED_MAX_K}; "
+            f"got cells {n_cells} and k_n {k_n}: use the sweep"
+        )
+    n_frames, n_atoms, _ = positions.shape
+    lib = _library()
+    per_frame = lib.adf_neighbor_cells_scratch_ints(n_atoms, n_cells[0] * n_cells[1] * n_cells[2])
+    # scratch: the cell-sorted atoms as float4, the per-frame ints
+    out, sorted_atoms, ints = _empty_lists(
+        n_frames, n_atoms, k_n, device, 4 * n_frames * n_atoms, n_frames * per_frame
+    )
+    if n_frames == 0 or n_atoms == 0:
+        return out
+    with torch.cuda.device(device):
+        err = lib.adf_neighbor_cells_launch(
+            positions.data_ptr(), species_id.data_ptr(), *(t.data_ptr() for t in out),
+            ints.data_ptr(), sorted_atoms.data_ptr(),
+            n_frames, n_atoms, n_species, k_n, *n_cells,
+            bx, by, bz, ibx, iby, ibz, threshold,
+            torch.cuda.current_stream(device).cuda_stream,
+        )
+    _raise_on(err, lib, "adf_neighbor_cells")
+    neighbor_extract_binned.launches += 1
+    return out
+
+
+neighbor_extract_binned.launches = 0
 
 
 def adf_pairs_histogram(
@@ -183,11 +322,6 @@ def adf_pairs_histogram(
             rx, ry, rz, d, sid_n, counts, sid_c, n_bins, n_species, int(norm_power)
         )
     _check_device(device)
-    if k_n > MAX_K:
-        raise ValueError(
-            f"neighbor lists of width {k_n}: the angle kernel stages at most "
-            f"{MAX_K} neighbors per center in shared memory"
-        )
     n_triples = n_triples_for(n_species)
     out = torch.zeros((n_frames, n_triples, n_bins), dtype=torch.float32, device=device)
     if n_frames == 0 or n_atoms == 0 or k_n < 2:
@@ -208,12 +342,15 @@ def adf_pairs_histogram(
 adf_pairs_histogram.launches = 0
 
 
-def pairs_histogram_uses_shared(n_species: int, n_bins: int, k_n: int) -> bool:
-    """Whether the angle kernel keeps this histogram in shared memory (CUDA only)."""
+def pairs_histogram_route(n_species: int, n_bins: int, k_n: int) -> tuple[str, str]:
+    """Where the angle kernel keeps the histogram and a center's entries
+    (CUDA only): ``("shared" | "shared f64" | "global", "staged" |
+    "global")``, by what fits a block's shared-memory opt-in. Every K runs:
+    wide lists are read from global memory, and from K = 256 on the shared
+    histogram sums in double."""
     n_total = n_triples_for(n_species) * n_bins
-    flag = _library().adf_pairs_histogram_uses_shared(n_total, k_n)
-    if flag < 0:
-        raise RuntimeError(
-            f"could not size the angle kernel's shared memory (code {flag})"
-        )
-    return bool(flag)
+    code = _library().adf_pairs_histogram_route(n_total, k_n)
+    if code < 0:
+        raise RuntimeError(f"could not size the angle kernel's shared memory (code {code})")
+    hist = ("shared f64" if code & 4 else "shared") if code & 1 else "global"
+    return (hist, "staged" if code & 2 else "global")

@@ -33,6 +33,28 @@ def box_scalars(box, what: str = "this kernel"):
     return tuple(map(float, b)), tuple(map(float, ib))
 
 
+def squared_cutoff(cutoff: float) -> float:
+    """The float32 threshold ``t`` with ``sqrt(s) < cutoff`` exactly when ``s <= t``.
+
+    ``t`` is the largest float32 ``s`` whose correctly rounded square root is
+    below ``float32(cutoff)``. Square root rounded to nearest is monotone, so
+    for the same rounded ``s = dx*dx + dy*dy + dz*dz`` the kernels' test
+    ``s <= t`` keeps exactly the pairs that the plain versions' ``sqrt(s) <
+    cutoff`` keeps, and the kernels take the square root of kept pairs only.
+    ``float32(cutoff) ** 2`` is not this threshold: for a cutoff of 19.9 it is
+    396.00998, and ``t`` is 396.00992.
+    """
+    c = np.float32(cutoff)
+    if not c > 0:
+        raise ValueError(f"need a positive cutoff, got {cutoff}")
+    t = np.float32(c * c)
+    while not np.sqrt(t) < c:
+        t = np.nextafter(t, np.float32(0.0))
+    while np.sqrt(np.nextafter(t, np.float32(np.inf))) < c:
+        t = np.nextafter(t, np.float32(np.inf))
+    return float(t)
+
+
 def minimum_image(r: torch.Tensor, edge: float, inv_edge: float) -> torch.Tensor:
     """One Cartesian component of displacements wrapped into the primary image.
 

@@ -13,19 +13,25 @@ can show that it went through the kernel.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
 from .. import _build
+from .geometry import squared_cutoff
 from .rdf import rdf_histogram_reference, rdf_scalars
 
-#: i-atoms per block; must equal ``kTile`` in ``csrc/rdf_histogram.cu``
+#: i-atoms per tile; must equal ``kTile`` in ``csrc/rdf_histogram.cu``
 TILE = 128
+
+#: where the kernel keeps its counts, by ``rdf_histogram_mode``'s code
+HISTOGRAM_MODES = ("warp", "block", "global")
 
 #: kernel launches made by ``rdf_histogram`` in this process
 launches = 0
 
 
+@functools.cache
 def _library() -> ctypes.CDLL:
     lib = _build.load_library()
     lib.rdf_histogram_launch.argtypes = (
@@ -35,8 +41,8 @@ def _library() -> ctypes.CDLL:
         + [ctypes.c_void_p]
     )
     lib.rdf_histogram_launch.restype = ctypes.c_int
-    lib.rdf_histogram_uses_shared.argtypes = [ctypes.c_int64]
-    lib.rdf_histogram_uses_shared.restype = ctypes.c_int
+    lib.rdf_histogram_mode.argtypes = [ctypes.c_int64]
+    lib.rdf_histogram_mode.restype = ctypes.c_int
     lib.rdf_cuda_error_string.argtypes = [ctypes.c_int]
     lib.rdf_cuda_error_string.restype = ctypes.c_char_p
     return lib
@@ -73,10 +79,15 @@ def _check(positions, species_id, box, cutoff, n_bins, n_species) -> None:
             f"need cutoff > 0, n_bins >= 1, n_species >= 1; got {cutoff}, "
             f"{n_bins}, {n_species}"
         )
-    if TILE * positions.shape[1] >= 2**32:
+    if n_bins / cutoff >= 2**40:
         raise ValueError(
-            f"{positions.shape[1]} atoms: one block's count ({TILE} * N) would "
-            "overflow the kernel's uint32 shared-memory bins"
+            f"n_bins / cutoff = {n_bins / cutoff}: the kernel bins squared "
+            "distances below 2^-100 as 0, which needs n_bins / cutoff < 2^40"
+        )
+    if TILE * (positions.shape[1] + TILE) >= 2**32:
+        raise ValueError(
+            f"{positions.shape[1]} atoms: one block's count ({TILE} * (N + {TILE})) "
+            "would overflow the kernel's uint32 shared-memory bins"
         )
 
 
@@ -106,6 +117,7 @@ def rdf_histogram(
     if positions.device.type != "cuda":
         raise ValueError(f"no kernel for device {positions.device}")
     (bx, by, bz), (ibx, iby, ibz), cut, inv_bin = rdf_scalars(box, cutoff, n_bins)
+    threshold = squared_cutoff(cut)
     n_frames, n_atoms, _ = positions.shape
     n_pairs = n_species * (n_species + 1) // 2
     out = torch.zeros((n_pairs, n_bins), dtype=torch.int64, device=positions.device)
@@ -116,7 +128,7 @@ def rdf_histogram(
         err = lib.rdf_histogram_launch(
             positions.data_ptr(), species_id.data_ptr(), out.data_ptr(),
             n_frames, n_atoms, n_species, n_bins,
-            bx, by, bz, ibx, iby, ibz, cut, inv_bin,
+            bx, by, bz, ibx, iby, ibz, threshold, inv_bin,
             torch.cuda.current_stream(positions.device).cuda_stream,
         )
     if err != 0:
@@ -128,10 +140,13 @@ def rdf_histogram(
     return out
 
 
-def uses_shared_histogram(n_species: int, n_bins: int) -> bool:
-    """Whether the kernel keeps this histogram in shared memory (CUDA only)."""
+def histogram_mode(n_species: int, n_bins: int) -> str:
+    """Where the kernel keeps this histogram (CUDA only): ``"warp"`` (one
+    shared-memory histogram per warp), ``"block"`` (one per block) or
+    ``"global"`` (atomics into device memory), by what fits a block's
+    shared-memory opt-in."""
     n_total = n_species * (n_species + 1) // 2 * n_bins
-    flag = _library().rdf_histogram_uses_shared(n_total)
-    if flag < 0:
+    code = _library().rdf_histogram_mode(n_total)
+    if code < 0:
         raise RuntimeError("could not query the device's shared-memory limit")
-    return bool(flag)
+    return HISTOGRAM_MODES[code]

@@ -231,14 +231,21 @@ def test_wrappers_run_the_plain_versions_on_cpu_tensors():
     pos, sid, box = _system(2, [30, 30], n_frames=2, box_l=5.0)
     pos_t, sid_t = torch.from_numpy(pos), torch.from_numpy(sid)
     calls = (port_adf.neighbor_extract_reference.calls, port_adf.adf_pairs_histogram_reference.calls)
-    launches = (adf_kernel.neighbor_extract.launches, adf_kernel.adf_pairs_histogram.launches)
+    counters = (
+        adf_kernel.neighbor_extract_sweep,
+        adf_kernel.neighbor_extract_binned,
+        adf_kernel.adf_pairs_histogram,
+    )
+    launches = [fn.launches for fn in counters]
     *lists, counts = adf_kernel.neighbor_extract(pos_t, sid_t, box, 2.0, 32, 2)
     h = adf_kernel.adf_pairs_histogram(*lists, counts, sid_t, 40, 2, 4)
     assert h.shape == (2, 4, 40) and h.dtype == torch.float32 and float(h.sum()) > 0
+    for extract in (adf_kernel.neighbor_extract_sweep, adf_kernel.neighbor_extract_binned):
+        assert all(torch.equal(a, b) for a, b in zip(extract(pos_t, sid_t, box, 2.0, 32, 2), (*lists, counts)))
     assert (port_adf.neighbor_extract_reference.calls, port_adf.adf_pairs_histogram_reference.calls) == (
-        calls[0] + 1, calls[1] + 1,
+        calls[0] + 3, calls[1] + 1,
     )
-    assert (adf_kernel.neighbor_extract.launches, adf_kernel.adf_pairs_histogram.launches) == launches
+    assert [fn.launches for fn in counters] == launches
 
 
 def test_wrappers_check_their_inputs():

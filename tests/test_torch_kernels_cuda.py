@@ -1,13 +1,16 @@
 """The CUDA kernels against their plain torch versions, on a GPU.
 
 Small versions of the kernel phase of ``chip_smoke.py``: the pair histogram
-(``csrc/rdf_histogram.cu`` through ``ops/rdf_kernel.py``) must equal
-``rdf_histogram_reference`` bin for bin, the neighbor extract
-(``csrc/adf_neighbor_extract.cu``) must equal ``neighbor_extract_reference``
-exactly, and the angle histogram (``csrc/adf_pairs_histogram.cu``) must
-agree with ``adf_pairs_histogram_reference`` within the JAX package's ADF
-tolerance (totals rtol 1e-5; at most max(2, size // 64) bins outside rtol
-1e-4: float32 atomics sum in another order), on the same tensors.
+(``csrc/rdf_histogram.cu`` through ``ops/rdf_kernel.py``, in each of its
+three histogram modes) must equal ``rdf_histogram_reference`` bin for bin;
+both routes of the neighbor extract (the sweep ``csrc/adf_neighbor_extract.cu``
+and the cell lists ``csrc/adf_neighbor_cells.cu``) must equal
+``neighbor_extract_reference`` exactly (the binned route on every row whose
+count fits K, and on ``counts`` everywhere); the angle histogram
+(``csrc/adf_pairs_histogram.cu``, any K) must agree with
+``adf_pairs_histogram_reference`` within the JAX package's ADF tolerance
+(totals rtol 1e-5; at most max(2, size // 64) bins outside rtol 1e-4: float32
+atomics sum in another order), on the same tensors.
 Marked ``cuda``; without a CUDA device every test skips. On a machine with a
 card: ``python -m pytest tests/test_torch_kernels_cuda.py -m cuda``.
 """
@@ -44,19 +47,21 @@ def _case(counts, n_frames, box, seed, device):
 
 
 @pytest.mark.parametrize(
-    "counts, n_frames, box, cutoff, n_bins, shared",
+    "counts, n_frames, box, cutoff, n_bins, mode",
     [
-        ([640, 640], 2, (20.0, 20.0, 20.0), 9.9, 500, True),
-        ([400, 350, 245], 3, (30.0, 33.0, 36.0), 9.9, 75, True),  # ragged, padded
-        ([200, 200, 200, 200], 2, (16.0, 16.0, 16.0), 7.9, 6000, False),  # global path
-        ([5], 1, (3.0, 3.0, 3.0), 1.45, 10, True),  # fewer atoms than one tile
+        ([640, 640], 2, (20.0, 20.0, 20.0), 9.9, 500, "warp"),
+        ([400, 350, 245], 3, (30.0, 33.0, 36.0), 9.9, 75, "warp"),  # ragged, padded
+        ([700, 600], 2, (20.0, 20.0, 20.0), 9.9, 5000, "block"),  # 15000 bins: one per block
+        ([200, 200, 200, 200], 2, (16.0, 16.0, 16.0), 7.9, 6000, "global"),
+        ([5], 1, (3.0, 3.0, 3.0), 1.45, 10, "warp"),  # fewer atoms than one tile
+        ([1500, 1100], 1, (25.0, 25.0, 25.0), 12.4, 200, "warp"),  # odd tile count (21)
     ],
-    ids=["bench-like", "ragged", "global-atomics", "tiny"],
+    ids=["bench-like", "ragged", "block-histogram", "global-atomics", "tiny", "odd-tiles"],
 )
-def test_kernel_matches_plain_bin_for_bin(cuda, counts, n_frames, box, cutoff, n_bins, shared):
+def test_kernel_matches_plain_bin_for_bin(cuda, counts, n_frames, box, cutoff, n_bins, mode):
     pos, sid = _case(counts, n_frames, box, seed=len(counts), device=cuda)
     args = (pos, sid, box, cutoff, n_bins, len(counts))
-    assert rdf_kernel.uses_shared_histogram(len(counts), n_bins) == shared
+    assert rdf_kernel.histogram_mode(len(counts), n_bins) == mode
     launches = rdf_kernel.launches
     h_kernel = rdf_kernel.rdf_histogram(*args)
     torch.cuda.synchronize()
@@ -97,41 +102,115 @@ def _adf_lists(counts, n_frames, box, cutoff, k_n, seed, device):
     ids=["first-shell", "ragged", "saturated", "tiny"],
 )
 def test_neighbor_extract_matches_plain_exactly(cuda, counts, n_frames, box, cutoff, k_n):
+    """The sweep on every case, and the routed extract through its route."""
     pos, sid, args = _adf_lists(counts, n_frames, box, cutoff, k_n, len(counts), cuda)
     sid[1:3] = len(counts)  # out of range: padding
-    launches = adf_kernel.neighbor_extract.launches
-    ours = adf_kernel.neighbor_extract(*args)
-    torch.cuda.synchronize()
-    assert adf_kernel.neighbor_extract.launches == launches + 1
     plain = neighbor_extract_reference(*args)
+    assert int(plain[5].sum()) > 0
+    launches = adf_kernel.neighbor_extract_sweep.launches
+    ours = adf_kernel.neighbor_extract_sweep(*args)
+    torch.cuda.synchronize()
+    assert adf_kernel.neighbor_extract_sweep.launches == launches + 1
     for a, b in zip(ours, plain):
         assert a.dtype == b.dtype and a.shape == b.shape
         assert torch.equal(a, b)
-    assert int(plain[5].sum()) > 0
+    route = adf_kernel.extract_route(pos.shape[1], box, cutoff, k_n)
+    wrapper = getattr(adf_kernel, f"neighbor_extract_{route}")
+    launches = wrapper.launches
+    ours = adf_kernel.neighbor_extract(*args)
+    torch.cuda.synchronize()
+    assert wrapper.launches == launches + 1
+    _assert_lists_equal_where_unsaturated(ours, plain, k_n)
+
+
+def _assert_lists_equal_where_unsaturated(ours, plain, k_n):
+    """Exact on every row whose count fits K; ``counts`` exact everywhere."""
+    assert torch.equal(ours[5], plain[5])
+    fits = plain[5] <= k_n
+    for a, b in zip(ours[:5], plain[:5]):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        assert torch.equal(a[fits], b[fits])
+
+
+BINNED_CASES = {
+    "first-shell": ([1200, 1200], 2, (26.0, 26.0, 26.0), 3.6, 48, None),
+    "ragged-noncubic": ([1400, 1350, 1245], 2, (30.0, 33.0, 36.0), 5.9, 96, None),
+    "integer-L-over-cutoff": ([2500, 2500], 1, (36.0, 36.0, 36.0), 3.6, 64, "faces"),
+    "unwrapped": ([2500, 2500], 2, (36.0, 36.0, 36.0), 3.6, 64, "unwrapped"),
+    "saturated": ([6000], 1, (20.0, 20.0, 20.0), 3.4, 128, None),
+}
 
 
 @pytest.mark.parametrize(
-    "counts, n_bins, p, shared",
+    "counts, n_frames, box, cutoff, k_n, layout", BINNED_CASES.values(), ids=BINNED_CASES
+)
+def test_binned_extract_matches_plain(cuda, counts, n_frames, box, cutoff, k_n, layout):
+    pos, sid = _case(counts, n_frames, box, seed=5, device=cuda)
+    sid[7:9] = len(counts)  # out of range: padding, in no cell
+    edges = torch.tensor(box, device=cuda)
+    if layout == "faces":  # a third of the atoms with x on a multiple of the cutoff
+        pos[:, ::3, 0] = torch.floor(pos[:, ::3, 0] / 3.6) * np.float32(3.6)
+        pos[:, :2] = edges  # exactly L: wraps to 0
+    if layout == "unwrapped":  # a third of the atoms one or two boxes away
+        pos[:, ::3] += torch.tensor([1.0, -2.0, 2.0], device=cuda) * edges
+        pos[:, 1::5] -= edges
+    args = (pos, sid, box, cutoff, k_n, len(counts))
+    launches = adf_kernel.neighbor_extract_binned.launches
+    ours = adf_kernel.neighbor_extract_binned(*args)
+    torch.cuda.synchronize()
+    assert adf_kernel.neighbor_extract_binned.launches == launches + 1
+    plain = neighbor_extract_reference(*args)
+    _assert_lists_equal_where_unsaturated(ours, plain, k_n)
+    assert int(plain[5].sum()) > 0
+    if layout is None and counts == [6000]:
+        assert int(plain[5].max()) > k_n
+
+
+@pytest.mark.parametrize(
+    "counts, n_bins, p, hist",
     [
-        ([640, 640], 500, 4, True),
-        ([640, 640], 500, 0, True),
-        ([400, 350, 245], 500, 2, True),  # 10 triples
-        ([300, 300, 300, 300], 3000, 4, False),  # 20 triples x 3000 bins: global atomics
+        ([640, 640], 500, 4, "shared"),
+        ([640, 640], 500, 0, "shared"),
+        ([400, 350, 245], 500, 2, "shared"),  # 10 triples
+        ([300, 300, 300, 300], 3000, 4, "global"),  # 20 triples x 3000 bins: global atomics
     ],
     ids=["2sp-p4", "2sp-p0", "3sp", "global-atomics"],
 )
-def test_pairs_histogram_matches_plain(cuda, counts, n_bins, p, shared):
+def test_pairs_histogram_matches_plain(cuda, counts, n_bins, p, hist):
     box = (20.0, 21.0, 22.0)
     pos, sid, args = _adf_lists(counts, 2, box, 3.9, 96, 11, cuda)
     *lists, n_in = adf_kernel.neighbor_extract(*args)
     assert int(n_in.max()) <= 96
     s = len(counts)
-    assert adf_kernel.pairs_histogram_uses_shared(s, n_bins, 96) == shared
+    assert adf_kernel.pairs_histogram_route(s, n_bins, 96) == (hist, "staged")
     launches = adf_kernel.adf_pairs_histogram.launches
     ours = adf_kernel.adf_pairs_histogram(*lists, n_in, sid, n_bins, s, p)
     torch.cuda.synchronize()
     assert adf_kernel.adf_pairs_histogram.launches == launches + 1
     plain = adf_pairs_histogram_reference(*lists, n_in, sid, n_bins, s, p)
+    ours, plain = ours.double().cpu().numpy(), plain.double().cpu().numpy()
+    assert plain.sum() > 0
+    np.testing.assert_allclose(ours.sum(), plain.sum(), rtol=1e-5)
+    bad = ~np.isclose(ours, plain, rtol=1e-4, atol=1e-6)
+    assert bad.sum() <= max(2, plain.size // 64), f"{bad.sum()} bins differ"
+
+
+@pytest.mark.parametrize(
+    "n_atoms, route",
+    [(1300, ("shared f64", "staged")), (2000, ("shared f64", "global"))],
+    ids=["K-1100-staged", "K-1800-from-global"],
+)
+def test_pairs_histogram_takes_lists_wider_than_1024(cuda, n_atoms, route):
+    """10 A box, 6 A cutoff: about 1100 and 1800 neighbors per center."""
+    box = (10.0, 10.0, 10.0)
+    pos, sid, args = _adf_lists([n_atoms], 1, box, 6.0, n_atoms, 23, cuda)
+    *_, n_in = neighbor_extract_reference(*args[:4], 1, 1)
+    k_n = int(n_in.max())
+    assert k_n > 1024
+    *lists, n_in = adf_kernel.neighbor_extract(*args[:4], k_n, 1)
+    assert adf_kernel.pairs_histogram_route(1, 500, k_n) == route
+    ours = adf_kernel.adf_pairs_histogram(*lists, n_in, sid, 500, 1, 4)
+    plain = adf_pairs_histogram_reference(*lists, n_in, sid, 500, 1, 4)
     ours, plain = ours.double().cpu().numpy(), plain.double().cpu().numpy()
     assert plain.sum() > 0
     np.testing.assert_allclose(ours.sum(), plain.sum(), rtol=1e-5)

@@ -42,7 +42,7 @@ def _imports(tree: ast.AST):
 
 def test_port_has_sources():
     assert len(SOURCES) > 20
-    for kernel in ("rdf_histogram", "adf_neighbor_extract", "adf_pairs_histogram"):
+    for kernel in ("rdf_histogram", "adf_neighbor_extract", "adf_neighbor_cells", "adf_pairs_histogram"):
         assert (PORT / "csrc" / f"{kernel}.cu").exists()
 
 

@@ -171,3 +171,5 @@ def test_wrapper_rejects_bad_inputs():
         rdf_kernel.rdf_histogram(pos, sid, None, 2.0, 10, 1)
     with pytest.raises(ValueError, match="3 edge lengths"):
         rdf_kernel.rdf_histogram(pos, sid, (5.0, 5.0), 2.0, 10, 1)
+    with pytest.raises(ValueError, match=r"n_bins / cutoff < 2\^40"):
+        rdf_kernel.rdf_histogram(pos, sid, box, 1e-12, 10, 1)
