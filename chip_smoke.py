@@ -23,7 +23,7 @@ Phases, one line each (any failure raises and the exit code is not 0):
      rows that fit K and on ``counts``), with the routes' times side by side;
    * ``[2 angles]`` the ADF angle histogram on those lists, K > 1024 too:
      totals within rtol 1e-5, at most max(2, size // 64) bins outside rtol
-     1e-4 (float32 atomics add in another order);
+     1e-4 (float64 atomics add in another order, acosf may differ by an ulp);
 3. main paths, each through ``Project`` -> in-memory ingest -> ``exp.run``,
    checked to go through its kernels and never the plain versions, to give
    the ideal gas's answer and to be a cache hit when run again, then run on
@@ -35,6 +35,9 @@ Phases, one line each (any failure raises and the exit code is not 0):
    warm process (median wall), then one under ``torch.profiler``: device
    time per kernel, the largest device consumers, and the share of the call
    the device is busy.
+
+``--walls`` runs only the forced-call medians and the angle kernel's
+one-frame launch, for an A/B of two checkouts on one card.
 
 The second-to-last line is a JSON summary of the kernels (times, launches on
 the main paths, bounds), the last line the device record ``{"ok": true,
@@ -66,7 +69,7 @@ DEVICE_KERNELS = {
     "rdf_histogram": ("rdf_histogram_kernel",),
     "adf_neighbor_cells": ("bin_atoms", "scan_counts", "scatter_atoms", "cells_extract"),
     "adf_neighbor_extract": ("neighbor_extract_kernel",),
-    "adf_pairs_histogram": ("adf_pairs_kernel",),
+    "adf_pairs_histogram": ("adf_pairs_kernel", "adf_pairs_finish"),
 }
 
 RECORD_OF_ROUTE = {"binned": "adf_neighbor_cells", "sweep": "adf_neighbor_extract"}
@@ -146,10 +149,11 @@ def make_case(counts, n_frames, box, seed, device):
     return torch.from_numpy(pos).to(device), torch.from_numpy(sid).to(device)
 
 
-def device_ms(fn, reps: int, record: str) -> float:
+def device_ms(fn, reps: int, record: str, parts=None) -> float:
     """Mean device milliseconds per call of a kernel record's device kernels
-    (``DEVICE_KERNELS``), from ``torch.profiler`` over ``reps`` calls after a
-    warm-up call: the kernels' own time, free of the host's launch cost."""
+    (``DEVICE_KERNELS``, or those whose names hold one of ``parts``), from
+    ``torch.profiler`` over ``reps`` calls after a warm-up call: the kernels'
+    own time, free of the host's launch cost, memsets and gaps."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -162,7 +166,7 @@ def device_ms(fn, reps: int, record: str) -> float:
     # per kernel of the record: its mean over the launches the profiler saw
     # (it may miss the first ones of a window)
     total_us = 0.0
-    for part in DEVICE_KERNELS[record]:
+    for part in parts or DEVICE_KERNELS[record]:
         spans = [
             e.time_range.end - e.time_range.start
             for e in prof.events()
@@ -288,11 +292,15 @@ def place(pos, box, layout):
         pos[:, 1::5] -= edges
 
 
-def binned_tests(pos, sid, box, cutoff, n_species) -> int:
-    """Distance tests the binned route makes on these inputs: for every cell,
-    its atoms times the atoms of its 27 neighbor cells."""
+def needed_tests(pos, sid, box, cutoff, n_species) -> int:
+    """Distance tests the neighbor extract needs on these inputs: for every
+    cell, its atoms times the atoms of its 27 neighbor cells; every pair when
+    the box holds fewer than three cells on some axis."""
     from lammps_analysis_tpu_torch.ops import cells
 
+    f, n_atoms, _ = pos.shape
+    if not cells.cell_lists_applicable(box, cutoff):
+        return f * n_atoms * n_atoms
     n = cells.cells_per_axis(box, cutoff)
     cell = cells.cell_of_atoms(pos, sid, box, n, n_species)
     occ = cells.cell_occupancy(cell, int(np.prod(n)))[:, :-1]
@@ -300,9 +308,11 @@ def binned_tests(pos, sid, box, cutoff, n_species) -> int:
     return int((occ * occ[:, hood].sum(-1)).sum())
 
 
-def extract_bound(route, pos, sid, box, cutoff, n_species, k_n, counts):
+def extract_bound(pos, sid, box, cutoff, n_species, k_n, counts):
+    """The neighbor extract's bound, one for both routes: the function's
+    work, not a route's."""
     f, n, _ = pos.shape
-    tests = binned_tests(pos, sid, box, cutoff, n_species) if route == "binned" else f * n * n
+    tests = needed_tests(pos, sid, box, cutoff, n_species)
     # ~22 float32 operations a test (as the RDF's), the square root of a kept one
     flops = 22 * tests + int(counts.sum())
     n_bytes = f * n * 12 + n * 4 + f * n * k_n * 20 + f * n * 4
@@ -389,22 +399,23 @@ def adf_kernels_vs_plain() -> dict:
             record = RECORD_OF_ROUTE[route]
             ms = device_ms(lambda: routes[route](*args), c["reps"][0], record)
             call_ms = time_ms(lambda: routes[route](*args), c["reps"][0])
-            bound_ms, bound_by = extract_bound(route, pos, sid, c["box"], c["cutoff"], n_species, k_n, counts)
-            timed[route] = dict(max_diff=0.0, ms=ms, call_ms=call_ms, bound_ms=bound_ms, bound_by=bound_by)
+            timed[route] = dict(max_diff=0.0, ms=ms, call_ms=call_ms)
         plain_ms = time_ms(lambda: neighbor_extract_reference(*args), c["reps"][1])
+        bound_ms, bound_by = extract_bound(pos, sid, c["box"], c["cutoff"], n_species, k_n, counts)
         for t in timed.values():
-            t["plain_ms"] = plain_ms
-        chosen = adf_kernel.extract_route(pos.shape[1], c["box"], c["cutoff"], k_n)
+            t.update(plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
+        chosen = adf_kernel.extract_route(c["box"], c["cutoff"], k_n)
         side = ", ".join(
             f"{r} {t['ms']:.4f} ms on the device, {t['call_ms']:.4f} ms a call back to back "
-            f"(bound {t['bound_ms']:.4f} ms, {t['bound_by']})"
+            f"({100 * bound_ms / t['ms']:.1f} % of the bound)"
             for r, t in timed.items()
         )
         phase(
             "2 extract",
             f"{label}: K={k_n}, mean count {float(counts.float().mean()):.2f}, largest "
             f"{max_count}, equal to the plain version ({'rows within K and counts' if not bool(fits.all()) else 'all six outputs'}); "
-            f"{side}; plain {plain_ms:.3f} ms; extract_route takes {chosen}",
+            f"{side}; bound {bound_ms:.4f} ms ({bound_by}); plain {plain_ms:.3f} ms; "
+            f"extract_route takes {chosen}",
         )
         for route, t in timed.items():
             results[f"extract {route} {label}"] = t
@@ -430,8 +441,9 @@ def adf_kernels_vs_plain() -> dict:
         "b global atomics, 10 triples x 6000 bins": ("b", 6000, 2, ("global", "staged"), (5, 1)),
         "c saturated lists": ("c", 500, 4, ("shared", "staged"), (5, 1)),
         "d 2x65536": ("d", 500, 4, ("shared", "staged"), (10, 2)),
-        "k1 K > 1024, staged": ("k1", 500, 4, ("shared f64", "staged"), (3, 1)),
-        "k2 K > 1024, lists from global memory": ("k2", 500, 4, ("shared f64", "global"), (3, 1)),
+        "k1 K > 1024, staged": ("k1", 500, 4, ("shared", "staged"), (3, 1)),
+        "k2 K > 1024, lists from global memory": ("k2", 500, 4, ("shared", "global"), (3, 1)),
+        "k3 K > 1024, 30000 bins: global histogram": ("k1", 30000, 4, ("global", "staged"), (3, 1)),
     }
     for label, (key, n_bins, p, where, reps) in angle_cases.items():
         (rx, ry, rz, d, sid_n), counts, sid, n_species = lists[key]
@@ -732,10 +744,34 @@ def kernel_record(name: str, launches: int, cases: list, main: dict) -> dict:
     }
 
 
+def angle_launch(rounds: int = 3) -> None:
+    """The angle kernel's one-frame main-path launch (case a1 of ``[2
+    extract]``): device time of its pair kernel alone, and CUDA events
+    around back-to-back calls of the wrapper, ``rounds`` times."""
+    from lammps_analysis_tpu_torch.ops import adf_kernel
+    from lammps_analysis_tpu_torch.parallel.sharded_ops import AdfPlan
+
+    pos, sid = make_case(ADF["counts"], 1, ADF["box"], 10, torch.device("cuda"))
+    k_n = AdfPlan(pos.shape[1], ADF["box"], ADF["cutoff"]).k_n
+    *lists, counts = adf_kernel.neighbor_extract(pos, sid, ADF["box"], ADF["cutoff"], k_n, 2)
+    args = (*lists, counts, sid, ADF["n_bins"], 2, 4)
+
+    def call():
+        return adf_kernel.adf_pairs_histogram(*args)
+
+    for _ in range(rounds):
+        ms = device_ms(call, 200, "adf_pairs_histogram", parts=("adf_pairs_kernel",))
+        phase(
+            "4 profile",
+            f"angle kernel, one-frame launch at K={k_n}: pair kernel {ms:.4f} ms on the "
+            f"device, {time_ms(call, 200):.4f} ms a call back to back",
+        )
+
+
 def walls() -> None:
-    """``--walls``: only the forced-call medians of both main paths, for an
-    A/B of two checkouts on one card (copy this script into the other
-    checkout and run it there too)."""
+    """``--walls``: only the forced-call medians of both main paths and the
+    angle kernel's one-frame launch, for an A/B of two checkouts on one card
+    (copy this script into the other checkout and run it there too)."""
     from lammps_analysis_tpu_torch import config
 
     config.device = "cuda"
@@ -753,6 +789,7 @@ def walls() -> None:
         exp.run.AngularDistributionFunction(**kw)
         forced_calls("ADF 16 frames x 10240 atoms, forced",
                      lambda: exp.run.AngularDistributionFunction(force=True, **kw), n=15)
+    angle_launch()
 
 
 def main() -> int:

@@ -13,12 +13,13 @@
 //   (b, c) = (min(sj, sk), max(sj, sk)); the pair is dropped when a > b
 //   w     = (1 / (dj*dk))^p by squaring, doubled when sj == sk
 // adds w to bin (triple_index(a, b, c), bin) of the frame's (n_triples,
-// n_bins) float32 histogram. Each unordered pair once with weight 2 for equal
+// n_bins) histogram, summed in float64 and rounded to float32 at the end, as
+// the plain version sums. Each unordered pair once with weight 2 for equal
 // species is the reference's ordered-pair count (j != k, non-decreasing
 // triple) folded in half. Every step is an explicitly rounded intrinsic and
 // the build passes -fmad=false, so each pair's bin and weight are those of
 // the plain torch version in ops/adf.py (adf_pairs_histogram_reference), up to
-// acosf's last ulp; the sums differ by the order of float32 atomic adds.
+// acosf's last ulp; the float64 sums differ only by the order of the adds.
 //
 // Design. The TPU kernel ran each center's K x K tile through one-hot matrix
 // products on the MXU, with the weight split into two bf16 halves. Here one
@@ -27,18 +28,20 @@
 // center's m = min(count, K) entries by a flat index q: pair (j, (j + dist)
 // mod m) with dist = q / m + 1 and j = q mod m covers every unordered pair
 // exactly once, with no idle lanes (q is 64-bit when m(m-1)/2 would pass
-// 2^31). Weights go to a block-private float32 histogram in dynamic shared
-// memory (shared atomics), flushed into the frame's global histogram with
-// float32 atomics, non-zero bins only.
+// 2^31). Weights go to a block-private float64 histogram in dynamic shared
+// memory (shared atomics), flushed into the frame's float64 accumulator in
+// global memory (float64 atomics, non-zero bins only); a last kernel rounds
+// the accumulator into the float32 output. One accumulator type at every K:
+// a wide list puts ~K^2 / 2 weights of one center on a few bins, and float32
+// bins drifted beyond the ADF's rtol 1e-5 at K ~ 1650.
 //
 // Instantiations, chosen by what fits a block's shared-memory opt-in: the
 // entries staged per warp in shared memory (8 warps x 5 x K x 4 bytes) and
 // the histogram there too; then the histogram alone, the warp reading its
 // center's entries straight from global memory (20 bytes x K, in L2); then
-// the staging alone with the histogram in global memory; then neither. So
-// any K, up to the atom count, runs on the card. From K = 256 on, the shared
-// histogram sums in double: a center then adds ~K^2 / 2 weights, and float32
-// bins that take 1e5 adds or more drift beyond the ADF's tolerance.
+// the staging alone with the pairs added straight into the global float64
+// accumulator; then neither. So any K, up to the atom count, and any
+// histogram size run on the card.
 //
 // What bounds it on this card: about 7.7e7 pair evaluations at 16 x 10240
 // atoms (~470 pairs per center at a first-shell cutoff), each an acosf, a
@@ -58,6 +61,7 @@ constexpr int kThreads = kWarps * 32;
 constexpr int kCentersPerBlock = 128;
 constexpr int kStageFields = 5;  // x, y, z, d, species
 constexpr int64_t kMaxGridY = 65535;
+constexpr int64_t kFinishBlocks = 1056;  // 8 blocks of 256 threads on each of 132 SMs
 
 struct Params {
   int n_atoms, k_n, n_species, n_bins, n_total_bins, norm_power;
@@ -88,11 +92,11 @@ __device__ __forceinline__ int species_or_pad(int s, int n_species) {
 
 // Adds the angles of every unordered pair of one center's m entries (ex..es)
 // into target; called by all 32 lanes of a warp.
-template <typename Index, typename Acc>
+template <typename Index>
 __device__ __forceinline__ void center_pairs(const float* ex, const float* ey,
                                              const float* ez, const float* ed,
                                              const int* es, int m, int sa,
-                                             const Params& p, Acc* target,
+                                             const Params& p, double* target,
                                              int lane) {
   const Index n_pairs = static_cast<Index>(m) * (m - 1) / 2;
   for (Index q = lane; q < n_pairs; q += 32) {
@@ -112,26 +116,25 @@ __device__ __forceinline__ void center_pairs(const float* ex, const float* ey,
     const int bin = min(static_cast<int>(floorf(__fmul_rn(theta, p.inv_bw))), p.n_bins - 1);
     float w = int_power(__frcp_rn(denom), p.norm_power);
     if (sj == sk) w = __fadd_rn(w, w);
-    atomicAdd(&target[triple_index(sa, b, cc, p.n_species) * p.n_bins + bin], static_cast<Acc>(w));
+    atomicAdd(&target[triple_index(sa, b, cc, p.n_species) * p.n_bins + bin], static_cast<double>(w));
   }
 }
 
-// Acc: the type of the shared-memory histogram's bins (float, or double for
-// wide lists).
-template <typename Acc, bool kSharedHist, bool kStaged>
+// Adds the frames' pair weights into acc (n_frames, n_total_bins) float64.
+template <bool kSharedHist, bool kStaged>
 __global__ void __launch_bounds__(kThreads)
 adf_pairs_kernel(const float* __restrict__ rx, const float* __restrict__ ry,
                  const float* __restrict__ rz, const float* __restrict__ dd,
                  const int* __restrict__ sid_n, const int* __restrict__ counts,
-                 const int* __restrict__ sid_c, float* __restrict__ out,
+                 const int* __restrict__ sid_c, double* __restrict__ acc,
                  const Params p) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int k = p.k_n;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   // histogram first (kSharedHist), then each warp's staging slice (kStaged)
-  Acc* hist = reinterpret_cast<Acc*>(smem);
-  float* wx = reinterpret_cast<float*>(smem + (kSharedHist ? p.n_total_bins * sizeof(Acc) : 0)) +
+  double* hist = reinterpret_cast<double*>(smem);
+  float* wx = reinterpret_cast<float*>(smem + (kSharedHist ? p.n_total_bins * sizeof(double) : 0)) +
               static_cast<int64_t>(warp) * kStageFields * k;
   float* wy = wx + k;
   float* wz = wy + k;
@@ -139,10 +142,10 @@ adf_pairs_kernel(const float* __restrict__ rx, const float* __restrict__ ry,
   int* ws = reinterpret_cast<int*>(wd + k);
 
   const int64_t frame_row = static_cast<int64_t>(blockIdx.y) * p.n_atoms;
-  float* frame_out = out + static_cast<int64_t>(blockIdx.y) * p.n_total_bins;
+  double* frame_acc = acc + static_cast<int64_t>(blockIdx.y) * p.n_total_bins;
 
   if (kSharedHist) {
-    for (int b = threadIdx.x; b < p.n_total_bins; b += kThreads) hist[b] = Acc(0);
+    for (int b = threadIdx.x; b < p.n_total_bins; b += kThreads) hist[b] = 0.0;
     __syncthreads();
   }
 
@@ -165,16 +168,11 @@ adf_pairs_kernel(const float* __restrict__ rx, const float* __restrict__ ry,
       __syncwarp();
       ex = wx, ey = wy, ez = wz, ed = wd, es = ws;
     }
+    double* target = kSharedHist ? hist : frame_acc;
     if (m <= 46340) {  // m(m-1)/2 < 2^31
-      if (kSharedHist) {
-        center_pairs<int>(ex, ey, ez, ed, es, m, sa, p, hist, lane);
-      } else {
-        center_pairs<int>(ex, ey, ez, ed, es, m, sa, p, frame_out, lane);
-      }
-    } else if (kSharedHist) {
-      center_pairs<int64_t>(ex, ey, ez, ed, es, m, sa, p, hist, lane);
+      center_pairs<int>(ex, ey, ez, ed, es, m, sa, p, target, lane);
     } else {
-      center_pairs<int64_t>(ex, ey, ez, ed, es, m, sa, p, frame_out, lane);
+      center_pairs<int64_t>(ex, ey, ez, ed, es, m, sa, p, target, lane);
     }
     if (kStaged) __syncwarp();  // the slice is read before the next center restages it
   }
@@ -182,9 +180,19 @@ adf_pairs_kernel(const float* __restrict__ rx, const float* __restrict__ ry,
   if (kSharedHist) {
     __syncthreads();
     for (int b = threadIdx.x; b < p.n_total_bins; b += kThreads) {
-      const float v = static_cast<float>(hist[b]);
-      if (v != 0.f) atomicAdd(&frame_out[b], v);
+      const double v = hist[b];
+      if (v != 0.0) atomicAdd(&frame_acc[b], v);
     }
+  }
+}
+
+// out[i] = acc[i] rounded to float32 (to nearest, as the plain version's
+// float64 -> float32 conversion).
+__global__ void __launch_bounds__(256)
+adf_pairs_finish(const double* __restrict__ acc, float* __restrict__ out, int64_t n) {
+  for (int64_t i = static_cast<int64_t>(blockIdx.x) * 256 + threadIdx.x; i < n;
+       i += static_cast<int64_t>(gridDim.x) * 256) {
+    out[i] = __double2float_rn(acc[i]);
   }
 }
 
@@ -205,32 +213,27 @@ cudaError_t shared_limit(size_t* bytes) {
 // Which instantiation takes a histogram of n_total_bins with lists of width
 // k_n, and the dynamic shared memory it uses. The histogram in shared memory
 // comes before the staging: its atomics cost more than reading the entries
-// from L2. From K = kWideK on, a center adds some K^2 / 2 weights and a block
-// of 128 centers puts ~1e5 or more float32 adds on one bin, which drifts
-// beyond the ADF's rtol 1e-5; its shared histogram then sums in double.
-constexpr int64_t kWideK = 256;
-
+// from L2.
 struct Route {
-  bool shared_hist, staged, wide;
+  bool shared_hist, staged;
   size_t smem;
 };
 
 Route choose(int64_t n_total_bins, int64_t k_n, size_t limit) {
   const size_t stage = stage_bytes(k_n);
-  const bool wide = k_n >= kWideK;
-  const size_t hist = static_cast<size_t>(n_total_bins) * (wide ? sizeof(double) : sizeof(float));
-  if (stage + hist <= limit) return {true, true, wide, stage + hist};
-  if (hist <= limit) return {true, false, wide, hist};
-  if (stage <= limit) return {false, true, false, stage};
-  return {false, false, false, 0};
+  const size_t hist = static_cast<size_t>(n_total_bins) * sizeof(double);
+  if (stage + hist <= limit) return {true, true, stage + hist};
+  if (hist <= limit) return {true, false, hist};
+  if (stage <= limit) return {false, true, stage};
+  return {false, false, 0};
 }
 
-template <typename Acc, bool kSharedHist, bool kStaged>
+template <bool kSharedHist, bool kStaged>
 cudaError_t launch_frames(const Route& r, const float* rx, const float* ry,
                           const float* rz, const float* d, const int* sid_n,
-                          const int* counts, const int* sid_c, float* out,
+                          const int* counts, const int* sid_c, double* acc,
                           int64_t n_frames, const Params& p, cudaStream_t s) {
-  auto kernel = adf_pairs_kernel<Acc, kSharedHist, kStaged>;
+  auto kernel = adf_pairs_kernel<kSharedHist, kStaged>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(r.smem));
   if (err != cudaSuccess) return err;
@@ -243,7 +246,7 @@ cudaError_t launch_frames(const Route& r, const float* rx, const float* ry,
     kernel<<<grid, kThreads, r.smem, s>>>(
         rx + f0 * list, ry + f0 * list, rz + f0 * list, d + f0 * list,
         sid_n + f0 * list, counts + f0 * p.n_atoms, sid_c,
-        out + f0 * p.n_total_bins, p);
+        acc + f0 * p.n_total_bins, p);
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
   }
@@ -255,24 +258,24 @@ cudaError_t launch_frames(const Route& r, const float* rx, const float* ry,
 extern "C" {
 
 // Bit 0: an n_total_bins histogram with lists of width k_n is kept in shared
-// memory; bit 1: the entries are staged there; bit 2: the shared histogram
-// sums in double. -2 on a CUDA error.
+// memory; bit 1: the entries are staged there. -2 on a CUDA error.
 int adf_pairs_histogram_route(int64_t n_total_bins, int64_t k_n) {
   size_t limit = 0;
   if (shared_limit(&limit) != cudaSuccess) return -2;
   const Route r = choose(n_total_bins, k_n, limit);
-  return (r.shared_hist ? 1 : 0) | (r.staged ? 2 : 0) | (r.wide ? 4 : 0);
+  return (r.shared_hist ? 1 : 0) | (r.staged ? 2 : 0);
 }
 
-// Adds the per-frame angle histograms of the neighbor lists rx, ry, rz, d
+// Writes the per-frame angle histograms of the neighbor lists rx, ry, rz, d
 // (n_frames, n_atoms, k_n) float32, sid_n (n_frames, n_atoms, k_n) int32,
 // counts (n_frames, n_atoms) int32 with center species sid_c (n_atoms,) int32
-// into out (n_frames, n_triples * n_bins) float32, on `stream`. Allocates
-// nothing and does not synchronise; returns cudaGetLastError().
+// into out (n_frames, n_triples * n_bins) float32, on `stream`, summing in
+// acc, float64 scratch of out's size (cleared here). Allocates nothing and
+// does not synchronise; returns cudaGetLastError().
 int adf_pairs_histogram_launch(const void* rx, const void* ry, const void* rz,
                                const void* d, const void* sid_n,
                                const void* counts, const void* sid_c, void* out,
-                               int64_t n_frames, int64_t n_atoms, int64_t k_n,
+                               void* acc, int64_t n_frames, int64_t n_atoms, int64_t k_n,
                                int64_t n_species, int64_t n_bins,
                                int64_t norm_power, float inv_bw, void* stream) {
   const int64_t n_triples = n_species * (n_species + 1) * (n_species + 2) / 6;
@@ -292,19 +295,23 @@ int adf_pairs_histogram_launch(const void* rx, const void* ry, const void* rz,
   const auto* fs = static_cast<const int*>(sid_n);
   const auto* fc = static_cast<const int*>(counts);
   const auto* sc = static_cast<const int*>(sid_c);
-  auto* fo = static_cast<float*>(out);
+  auto* fa = static_cast<double*>(acc);
+  const int64_t n_out = n_frames * p.n_total_bins;
+  err = cudaMemsetAsync(fa, 0, static_cast<size_t>(n_out) * sizeof(double), s);
+  if (err != cudaSuccess) return err;
   if (r.shared_hist && r.staged) {
-    err = r.wide ? launch_frames<double, true, true>(r, fx, fy, fz, fd, fs, fc, sc, fo, n_frames, p, s)
-                 : launch_frames<float, true, true>(r, fx, fy, fz, fd, fs, fc, sc, fo, n_frames, p, s);
+    err = launch_frames<true, true>(r, fx, fy, fz, fd, fs, fc, sc, fa, n_frames, p, s);
   } else if (r.shared_hist) {
-    err = r.wide ? launch_frames<double, true, false>(r, fx, fy, fz, fd, fs, fc, sc, fo, n_frames, p, s)
-                 : launch_frames<float, true, false>(r, fx, fy, fz, fd, fs, fc, sc, fo, n_frames, p, s);
+    err = launch_frames<true, false>(r, fx, fy, fz, fd, fs, fc, sc, fa, n_frames, p, s);
   } else if (r.staged) {
-    err = launch_frames<float, false, true>(r, fx, fy, fz, fd, fs, fc, sc, fo, n_frames, p, s);
+    err = launch_frames<false, true>(r, fx, fy, fz, fd, fs, fc, sc, fa, n_frames, p, s);
   } else {
-    err = launch_frames<float, false, false>(r, fx, fy, fz, fd, fs, fc, sc, fo, n_frames, p, s);
+    err = launch_frames<false, false>(r, fx, fy, fz, fd, fs, fc, sc, fa, n_frames, p, s);
   }
   if (err != cudaSuccess) return err;
+  const int64_t finish_blocks = (n_out + 255) / 256 < kFinishBlocks ? (n_out + 255) / 256 : kFinishBlocks;
+  adf_pairs_finish<<<static_cast<unsigned int>(finish_blocks), 256, 0, s>>>(
+      fa, static_cast<float*>(out), n_out);
   return cudaGetLastError();
 }
 

@@ -40,11 +40,6 @@ from .adf import (
 from .cells import cell_lists_applicable, cells_per_axis
 from .geometry import box_scalars, squared_cutoff
 
-#: fewest atoms for which the binned route is taken: the smallest frame at
-#: which ``chip_smoke.py`` times both routes (1000 atoms), where the binned
-#: route's device time already beats the sweep's (PERF.md)
-BINNED_MIN_ATOMS = 1000
-
 #: widest neighbor list the binned route stages (``kMaxK`` in
 #: ``csrc/adf_neighbor_cells.cu``: 4 warps x 16 centers x K ints of shared memory)
 BINNED_MAX_K = 512
@@ -70,7 +65,7 @@ def _library() -> ctypes.CDLL:
     lib.adf_neighbor_cells_scratch_ints.argtypes = [ctypes.c_int64, ctypes.c_int64]
     lib.adf_neighbor_cells_scratch_ints.restype = ctypes.c_int64
     lib.adf_pairs_histogram_launch.argtypes = (
-        [ctypes.c_void_p] * 8
+        [ctypes.c_void_p] * 9
         + [ctypes.c_int64] * 6
         + [ctypes.c_float, ctypes.c_void_p]
     )
@@ -108,18 +103,13 @@ def _raise_on(err: int, lib, what: str) -> None:
         )
 
 
-def extract_route(n_atoms: int, box, cutoff: float, k_n: int) -> str:
+def extract_route(box, cutoff: float, k_n: int) -> str:
     """``"binned"`` or ``"sweep"``: the neighbor extract's route for this shape.
 
     Binned when the box holds three or more cells on every axis
-    (``ops/cells.py``), the frame has at least ``BINNED_MIN_ATOMS`` atoms and
-    K is at most ``BINNED_MAX_K``; the sweep otherwise.
+    (``ops/cells.py``) and K is at most ``BINNED_MAX_K``; the sweep otherwise.
     """
-    if (
-        n_atoms >= BINNED_MIN_ATOMS
-        and k_n <= BINNED_MAX_K
-        and cell_lists_applicable(box, cutoff)
-    ):
+    if k_n <= BINNED_MAX_K and cell_lists_applicable(box, cutoff):
         return "binned"
     return "sweep"
 
@@ -189,7 +179,7 @@ def neighbor_extract(
     route is ``extract_route``'s.
     """
     _check_extract(positions, species_id, cutoff, k_n, n_species)
-    route = extract_route(positions.shape[1], box, cutoff, k_n)
+    route = extract_route(_box_key(box), cutoff, k_n)
     extract = neighbor_extract_binned if route == "binned" else neighbor_extract_sweep
     return extract(positions, species_id, box, cutoff, k_n, n_species)
 
@@ -298,8 +288,9 @@ def adf_pairs_histogram(
 
     Lists as :func:`neighbor_extract` returns them, ``sid_c`` ``(N,)`` int32
     the center species. The contract is
-    ``ops/adf.py::adf_pairs_histogram_reference``'s; the kernel adds its
-    float32 weights with atomics, so sums agree up to their order.
+    ``ops/adf.py::adf_pairs_histogram_reference``'s; the kernel sums the
+    float32 weights in float64 as the plain version does, with atomics, so
+    sums agree up to their order.
     """
     if not isinstance(rx, torch.Tensor):
         raise TypeError("rx must be a torch tensor")
@@ -322,16 +313,17 @@ def adf_pairs_histogram(
             rx, ry, rz, d, sid_n, counts, sid_c, n_bins, n_species, int(norm_power)
         )
     _check_device(device)
-    n_triples = n_triples_for(n_species)
-    out = torch.zeros((n_frames, n_triples, n_bins), dtype=torch.float32, device=device)
+    shape = (n_frames, n_triples_for(n_species), n_bins)
     if n_frames == 0 or n_atoms == 0 or k_n < 2:
-        return out
+        return torch.zeros(shape, dtype=torch.float32, device=device)
+    out = torch.empty(shape, dtype=torch.float32, device=device)
+    acc = torch.empty(shape, dtype=torch.float64, device=device)  # cleared by the launch
     lib = _library()
     with torch.cuda.device(device):
         err = lib.adf_pairs_histogram_launch(
             rx.data_ptr(), ry.data_ptr(), rz.data_ptr(), d.data_ptr(),
             sid_n.data_ptr(), counts.data_ptr(), sid_c.data_ptr(), out.data_ptr(),
-            n_frames, n_atoms, k_n, n_species, n_bins, int(norm_power),
+            acc.data_ptr(), n_frames, n_atoms, k_n, n_species, n_bins, int(norm_power),
             bin_scale(n_bins), torch.cuda.current_stream(device).cuda_stream,
         )
     _raise_on(err, lib, "adf_pairs_histogram")
@@ -343,14 +335,12 @@ adf_pairs_histogram.launches = 0
 
 
 def pairs_histogram_route(n_species: int, n_bins: int, k_n: int) -> tuple[str, str]:
-    """Where the angle kernel keeps the histogram and a center's entries
-    (CUDA only): ``("shared" | "shared f64" | "global", "staged" |
-    "global")``, by what fits a block's shared-memory opt-in. Every K runs:
-    wide lists are read from global memory, and from K = 256 on the shared
-    histogram sums in double."""
+    """Where the angle kernel keeps the float64 histogram and a center's
+    entries (CUDA only): ``("shared" | "global", "staged" | "global")``, by
+    what fits a block's shared-memory opt-in. Every K and every histogram
+    size runs."""
     n_total = n_triples_for(n_species) * n_bins
     code = _library().adf_pairs_histogram_route(n_total, k_n)
     if code < 0:
         raise RuntimeError(f"could not size the angle kernel's shared memory (code {code})")
-    hist = ("shared f64" if code & 4 else "shared") if code & 1 else "global"
-    return (hist, "staged" if code & 2 else "global")
+    return ("shared" if code & 1 else "global", "staged" if code & 2 else "global")

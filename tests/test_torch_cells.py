@@ -67,15 +67,14 @@ def test_cells_per_axis_keep_the_margin(box, cutoff, expected):
 
 def test_extract_route_rule():
     route = adf_kernel.extract_route
-    big = adf_kernel.BINNED_MIN_ATOMS
-    assert route(10240, [40.0] * 3, 3.6, 88) == "binned"  # the ADF main path
-    assert route(65536, [74.27] * 3, 3.6, 88) == "binned"
-    assert route(big, [40.0] * 3, 3.6, adf_kernel.BINNED_MAX_K) == "binned"
-    assert route(big - 1, [40.0] * 3, 3.6, 88) == "sweep"  # below the crossover
-    assert route(10240, [40.0] * 3, 3.6, adf_kernel.BINNED_MAX_K + 1) == "sweep"  # too wide
-    assert route(10240, [10.0] * 3, 3.6, 88) == "sweep"  # two cells per axis
-    assert route(10240, [40.0, 40.0, 10.0], 3.6, 88) == "sweep"  # one short axis
-    assert route(2000, [10.0] * 3, 6.0, 2000) == "sweep"
+    assert route([40.0] * 3, 3.6, 88) == "binned"  # the ADF main path
+    assert route([74.27] * 3, 3.6, 88) == "binned"
+    assert route([40.0] * 3, 3.6, adf_kernel.BINNED_MAX_K) == "binned"
+    assert route([11.0] * 3, 3.6, 8) == "binned"  # three cells per axis
+    assert route([40.0] * 3, 3.6, adf_kernel.BINNED_MAX_K + 1) == "sweep"  # too wide
+    assert route([10.0] * 3, 3.6, 88) == "sweep"  # two cells per axis
+    assert route([40.0, 40.0, 10.0], 3.6, 88) == "sweep"  # one short axis
+    assert route([10.0] * 3, 6.0, 2000) == "sweep"
 
 
 # ------------------------------------------------------------------ binning

@@ -9,8 +9,8 @@ and the cell lists ``csrc/adf_neighbor_cells.cu``) must equal
 count fits K, and on ``counts`` everywhere); the angle histogram
 (``csrc/adf_pairs_histogram.cu``, any K) must agree with
 ``adf_pairs_histogram_reference`` within the JAX package's ADF tolerance
-(totals rtol 1e-5; at most max(2, size // 64) bins outside rtol 1e-4: float32
-atomics sum in another order), on the same tensors.
+(totals rtol 1e-5; at most max(2, size // 64) bins outside rtol 1e-4: its
+float64 atomics sum in another order), on the same tensors.
 Marked ``cuda``; without a CUDA device every test skips. On a machine with a
 card: ``python -m pytest tests/test_torch_kernels_cuda.py -m cuda``.
 """
@@ -114,7 +114,7 @@ def test_neighbor_extract_matches_plain_exactly(cuda, counts, n_frames, box, cut
     for a, b in zip(ours, plain):
         assert a.dtype == b.dtype and a.shape == b.shape
         assert torch.equal(a, b)
-    route = adf_kernel.extract_route(pos.shape[1], box, cutoff, k_n)
+    route = adf_kernel.extract_route(box, cutoff, k_n)
     wrapper = getattr(adf_kernel, f"neighbor_extract_{route}")
     launches = wrapper.launches
     ours = adf_kernel.neighbor_extract(*args)
@@ -196,11 +196,15 @@ def test_pairs_histogram_matches_plain(cuda, counts, n_bins, p, hist):
 
 
 @pytest.mark.parametrize(
-    "n_atoms, route",
-    [(1300, ("shared f64", "staged")), (2000, ("shared f64", "global"))],
-    ids=["K-1100-staged", "K-1800-from-global"],
+    "n_atoms, n_bins, route",
+    [
+        (1300, 500, ("shared", "staged")),
+        (2000, 500, ("shared", "global")),
+        (1300, 30000, ("global", "staged")),  # 240 KB of float64 bins: no shared histogram
+    ],
+    ids=["K-1100-staged", "K-1800-from-global", "K-1100-global-histogram"],
 )
-def test_pairs_histogram_takes_lists_wider_than_1024(cuda, n_atoms, route):
+def test_pairs_histogram_takes_lists_wider_than_1024(cuda, n_atoms, n_bins, route):
     """10 A box, 6 A cutoff: about 1100 and 1800 neighbors per center."""
     box = (10.0, 10.0, 10.0)
     pos, sid, args = _adf_lists([n_atoms], 1, box, 6.0, n_atoms, 23, cuda)
@@ -208,9 +212,9 @@ def test_pairs_histogram_takes_lists_wider_than_1024(cuda, n_atoms, route):
     k_n = int(n_in.max())
     assert k_n > 1024
     *lists, n_in = adf_kernel.neighbor_extract(*args[:4], k_n, 1)
-    assert adf_kernel.pairs_histogram_route(1, 500, k_n) == route
-    ours = adf_kernel.adf_pairs_histogram(*lists, n_in, sid, 500, 1, 4)
-    plain = adf_pairs_histogram_reference(*lists, n_in, sid, 500, 1, 4)
+    assert adf_kernel.pairs_histogram_route(1, n_bins, k_n) == route
+    ours = adf_kernel.adf_pairs_histogram(*lists, n_in, sid, n_bins, 1, 4)
+    plain = adf_pairs_histogram_reference(*lists, n_in, sid, n_bins, 1, 4)
     ours, plain = ours.double().cpu().numpy(), plain.double().cpu().numpy()
     assert plain.sum() > 0
     np.testing.assert_allclose(ours.sum(), plain.sum(), rtol=1e-5)
