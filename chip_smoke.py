@@ -21,9 +21,14 @@ Phases, one line each (any failure raises and the exit code is not 0):
    * ``[2 extract]`` both routes of the ADF neighbor extract (the sweep and
      the cell lists), all six outputs equal (a saturated binned case on the
      rows that fit K and on ``counts``), with the routes' times side by side;
-   * ``[2 angles]`` the ADF angle histogram on those lists, K > 1024 too:
-     totals within rtol 1e-5, at most max(2, size // 64) bins outside rtol
-     1e-4 (float64 atomics add in another order, acosf may differ by an ulp);
+   * ``[2 angles]`` the ADF angle histogram on those lists, K > 1024 too,
+     a frame of mixed widths (a dense cluster among first shells), 64 frames
+     in one launch and seeded lists with 0, 1, 2, 32, 33, K and more entries
+     and padding ids: totals within rtol 1e-5, at most max(2, size // 64)
+     bins outside rtol 1e-4 (float64 atomics add in another order, acosf may
+     differ by an ulp); each line names the kernel's split
+     (``pairs_histogram_route``): where the float64 histogram lives, the
+     chunks of ``chunk_pairs`` pairs a center is cut into, the blocks a frame;
 3. main paths, each through ``Project`` -> in-memory ingest -> ``exp.run``,
    checked to go through its kernels and never the plain versions, to give
    the ideal gas's answer and to be a cache hit when run again, then run on
@@ -37,7 +42,9 @@ Phases, one line each (any failure raises and the exit code is not 0):
    the device is busy.
 
 ``--walls`` runs only the forced-call medians and the angle kernel's
-one-frame launch, for an A/B of two checkouts on one card.
+one-frame launch, for an A/B of two checkouts on one card. ``--chunks`` times
+the angle kernel at several chunk sizes (``adf_kernel.PAIRS_CHUNK``) on the
+one-frame launch, the mixed frame, K = 1076 and 16 main-path frames.
 
 The second-to-last line is a JSON summary of the kernels (times, launches on
 the main paths, bounds), the last line the device record ``{"ok": true,
@@ -69,7 +76,7 @@ DEVICE_KERNELS = {
     "rdf_histogram": ("rdf_histogram_kernel",),
     "adf_neighbor_cells": ("bin_atoms", "scan_counts", "scatter_atoms", "cells_extract"),
     "adf_neighbor_extract": ("neighbor_extract_kernel",),
-    "adf_pairs_histogram": ("adf_pairs_kernel", "adf_pairs_finish"),
+    "adf_pairs_histogram": ("adf_pairs_kernel",),
 }
 
 RECORD_OF_ROUTE = {"binned": "adf_neighbor_cells", "sweep": "adf_neighbor_extract"}
@@ -149,11 +156,12 @@ def make_case(counts, n_frames, box, seed, device):
     return torch.from_numpy(pos).to(device), torch.from_numpy(sid).to(device)
 
 
-def device_ms(fn, reps: int, record: str, parts=None) -> float:
+def device_ms(fn, reps: int, record: str, parts=None, present_only=False) -> float:
     """Mean device milliseconds per call of a kernel record's device kernels
     (``DEVICE_KERNELS``, or those whose names hold one of ``parts``), from
     ``torch.profiler`` over ``reps`` calls after a warm-up call: the kernels'
-    own time, free of the host's launch cost, memsets and gaps."""
+    own time, free of the host's launch cost, memsets and gaps. A part the
+    profiler did not see raises, unless ``present_only``."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -173,8 +181,12 @@ def device_ms(fn, reps: int, record: str, parts=None) -> float:
             if e.device_type == DeviceType.CUDA and part in e.name
         ]
         if not spans:
+            if present_only:
+                continue
             raise RuntimeError(f"the profiler saw no {part} kernel of {record}")
         total_us += sum(spans) / len(spans)
+    if total_us == 0.0:
+        raise RuntimeError(f"the profiler saw no kernel of {record}")
     return total_us / 1e3
 
 
@@ -319,13 +331,79 @@ def extract_bound(pos, sid, box, cutoff, n_species, k_n, counts):
     return bound(flops, n_bytes)
 
 
-def pairs_bound(counts, k_n, n_atoms, n_frames, n_hist):
-    listed = counts.clamp(max=k_n).double()
-    pairs = float((listed * (listed - 1) / 2).sum())
-    # ~30 float32 operations a pair: the dot product, the division, acos, the
-    # bin and the weight
-    n_bytes = float(listed.sum()) * 20 + n_frames * n_atoms * 4 + n_atoms * 4 + n_hist * 4
-    return pairs, bound(30 * pairs, n_bytes)
+def pairs_bound(sid_n, counts, sid_c, n_species, n_hist):
+    """``(angles, (bound ms, set by))`` of the angle histogram on these
+    lists: the pairs whose angle the function needs (both neighbors of a
+    species at least the center's), ~30 float32 operations each (the dot
+    product, the division, acos, the bin and the weight), a species test for
+    every other listed pair; each list slot, count and id read once, the
+    histogram written once."""
+    n_frames, n_atoms, k_n = sid_n.shape
+    listed = torch.arange(k_n, device=sid_n.device) < counts.clamp(max=k_n)[..., None]
+    centers = torch.where((sid_c >= 0) & (sid_c < n_species), sid_c, n_species)
+    usable = listed & (sid_n >= centers[None, :, None]) & (sid_n < n_species)
+    kept = usable.sum(-1, dtype=torch.float64)
+    angles = float((kept * (kept - 1) / 2).sum())
+    n_listed = counts.clamp(max=k_n).double()
+    tests = float((n_listed * (n_listed - 1) / 2).sum()) - angles
+    n_bytes = float(n_listed.sum()) * 20 + n_frames * n_atoms * 4 + n_atoms * 4 + n_hist * 4
+    return angles, bound(30 * angles + 2 * tests, n_bytes)
+
+
+def describe_route(route) -> str:
+    """One ``[2 angles]`` route: the histogram's place and the work split."""
+    return (
+        f"{route.histogram} histogram, {route.chunks_per_center} chunk(s) of "
+        f"{route.chunk_pairs} pairs a center, {route.blocks_per_frame} blocks x "
+        f"{route.warps_per_block} warps a frame"
+    )
+
+
+def main_path_lists(n_frames, device):
+    """Neighbor lists of the ADF main path's frames (10240 atoms, 3.6 A, K
+    from ``AdfPlan``) through the routed extract."""
+    from lammps_analysis_tpu_torch.ops import adf_kernel
+    from lammps_analysis_tpu_torch.parallel.sharded_ops import AdfPlan
+
+    pos, sid = make_case(ADF["counts"], n_frames, ADF["box"], 10, device)
+    k_n = AdfPlan(pos.shape[1], ADF["box"], ADF["cutoff"]).k_n
+    *found, counts = adf_kernel.neighbor_extract(pos, sid, ADF["box"], ADF["cutoff"], k_n, 2)
+    if int(counts.max()) > k_n:
+        raise RuntimeError(f"main-path lists saturate K={k_n}")
+    return found, counts, sid, 2
+
+
+def mixed_widths_lists(device):
+    """One main-path frame whose first 400 atoms sit in a 3 A cube: most
+    centers have ~31 neighbors, the cube's several hundred; K fits the
+    widest."""
+    from lammps_analysis_tpu_torch.ops import adf_kernel
+    from lammps_analysis_tpu_torch.ops.adf import neighbor_extract_reference
+
+    pos, sid = make_case(ADF["counts"], 1, ADF["box"], 60, device)
+    rng = np.random.default_rng(61)
+    pos[0, :400] = torch.from_numpy(rng.uniform(20.0, 23.0, (400, 3)).astype(np.float32)).to(device)
+    *_, counts = neighbor_extract_reference(pos, sid, ADF["box"], ADF["cutoff"], 1, 2)
+    k_n = -(-int(counts.max()) // 8) * 8
+    *found, counts = adf_kernel.neighbor_extract(pos, sid, ADF["box"], ADF["cutoff"], k_n, 2)
+    return found, counts, sid, 2
+
+
+def edge_lists(device, k_n=100, n_atoms=4096, n_frames=2):
+    """Seeded lists whose centers have 0, 1, 2, 32, 33, K and K + 7 entries,
+    neighbor ids -1 and 2 (padding for 2 species) among 0 and 1, centers of
+    species -1 and 2 among 0 and 1, and some zero-length entries."""
+    rng = np.random.default_rng(70)
+    r = rng.normal(size=(3, n_frames, n_atoms, k_n)).astype(np.float32)
+    r[:, rng.random((n_frames, n_atoms, k_n)) < 0.01] = 0.0
+    dist = np.sqrt((r * r).sum(0), dtype=np.float32)
+    sid_n = rng.choice(np.array([-1, 0, 1, 2], np.int32), p=[0.05, 0.45, 0.45, 0.05],
+                       size=(n_frames, n_atoms, k_n))
+    counts = rng.choice(np.array([0, 1, 2, 32, 33, k_n, k_n + 7], np.int32),
+                        size=(n_frames, n_atoms))
+    sid_c = rng.choice(np.array([-1, 0, 1, 2], np.int32), p=[0.05, 0.45, 0.45, 0.05], size=n_atoms)
+    lists = [torch.from_numpy(np.ascontiguousarray(a)).to(device) for a in (*r, dist, sid_n)]
+    return lists, torch.from_numpy(counts).to(device), torch.from_numpy(sid_c).to(device), 2
 
 
 def adf_kernels_vs_plain() -> dict:
@@ -424,47 +502,56 @@ def adf_kernels_vs_plain() -> dict:
         del plain
         torch.cuda.empty_cache()
 
-    # neighbor lists wider than 1024 (10 A box, 6 A cutoff): staged, then read
-    # from global memory
+    # neighbor lists wider than 1024 (10 A box, 6 A cutoff), cut into chunks
     for key, n_atoms in (("k1", 1300), ("k2", 2000)):
         pos, sid = make_case([n_atoms], 1, (10.0,) * 3, 40 + n_atoms, device)
         *_, counts = neighbor_extract_reference(pos, sid, (10.0,) * 3, 6.0, 1, 1)
         k_n = int(counts.max())
         *found, counts = adf_kernel.neighbor_extract(pos, sid, (10.0,) * 3, 6.0, k_n, 1)
         lists[key] = (found, counts, sid, 1)
+    lists["mixed"] = mixed_widths_lists(device)
+    lists["many"] = main_path_lists(64, device)
+    lists["edge"] = edge_lists(device)
 
     angle_cases = {
-        "a1 main-path launch, 1 frame": ("a1", 500, 4, ("shared", "staged"), (50, 2)),
-        "a 2 species x 500 bins, p=4": ("a", 500, 4, ("shared", "staged"), (20, 2)),
-        "a p=0": ("a", 500, 0, ("shared", "staged"), (5, 1)),
-        "b 10 triples x 500 bins": ("b", 500, 4, ("shared", "staged"), (5, 1)),
-        "b global atomics, 10 triples x 6000 bins": ("b", 6000, 2, ("global", "staged"), (5, 1)),
-        "c saturated lists": ("c", 500, 4, ("shared", "staged"), (5, 1)),
-        "d 2x65536": ("d", 500, 4, ("shared", "staged"), (10, 2)),
-        "k1 K > 1024, staged": ("k1", 500, 4, ("shared", "staged"), (3, 1)),
-        "k2 K > 1024, lists from global memory": ("k2", 500, 4, ("shared", "global"), (3, 1)),
-        "k3 K > 1024, 30000 bins: global histogram": ("k1", 30000, 4, ("global", "staged"), (3, 1)),
+        "a1 main-path launch, 1 frame": ("a1", 500, 4, "shared", (50, 2)),
+        "a 2 species x 500 bins, p=4": ("a", 500, 4, "shared", (20, 2)),
+        "a p=0": ("a", 500, 0, "shared", (5, 1)),
+        "b 10 triples x 500 bins": ("b", 500, 4, "shared", (5, 1)),
+        "b global atomics, 10 triples x 6000 bins": ("b", 6000, 2, "global", (5, 1)),
+        "c saturated lists": ("c", 500, 4, "shared", (5, 1)),
+        "d 2x65536": ("d", 500, 4, "shared", (10, 2)),
+        "k1 K > 1024": ("k1", 500, 4, "shared", (3, 1)),
+        "k2 K > 1024, wider": ("k2", 500, 4, "shared", (3, 1)),
+        "k3 K > 1024, 30000 bins: global histogram": ("k1", 30000, 4, "global", (3, 1)),
+        "mixed widths, 1 frame": ("mixed", 500, 4, "shared", (10, 2)),
+        "many frames 64x10240": ("many", 500, 4, "shared", (5, 1)),
+        "m edge cases 0, 1, 2, 32, 33, K, padding": ("edge", 500, 4, "shared", (10, 2)),
     }
     for label, (key, n_bins, p, where, reps) in angle_cases.items():
         (rx, ry, rz, d, sid_n), counts, sid, n_species = lists[key]
         args = (rx, ry, rz, d, sid_n, counts, sid, n_bins, n_species, p)
-        k_n = rx.shape[2]
-        route = adf_kernel.pairs_histogram_route(n_species, n_bins, k_n)
-        if route != where:
-            raise RuntimeError(f"angles {label}: expected {where}, got {route}")
+        n_frames, n_atoms, k_n = rx.shape
+        route = adf_kernel.pairs_histogram_route(n_species, n_bins, k_n, n_atoms, n_frames)
+        if route.histogram != where:
+            raise RuntimeError(f"angles {label}: expected the {where} histogram, got {route}")
+        n_sms = torch.cuda.get_device_properties(0).multi_processor_count
+        if key in ("a1", "k1", "k2", "mixed") and route.blocks_per_frame < n_sms:
+            raise RuntimeError(f"angles {label}: {route.blocks_per_frame} blocks leave SMs of {n_sms} idle")
         ours = adf_kernel.adf_pairs_histogram(*args)
         plain = adf_pairs_histogram_reference(*args)
         torch.cuda.synchronize()
         max_diff = check_hist(f"angles {label}", ours.cpu().numpy(), plain.cpu().numpy())
         ms = device_ms(lambda: adf_kernel.adf_pairs_histogram(*args), reps[0], "adf_pairs_histogram")
         plain_ms = time_ms(lambda: adf_pairs_histogram_reference(*args), reps[1])
-        pairs, (bound_ms, bound_by) = pairs_bound(counts, k_n, rx.shape[1], rx.shape[0], plain.numel())
+        pairs, (bound_ms, bound_by) = pairs_bound(sid_n, counts, sid, n_species, plain.numel())
         phase(
             "2 angles",
-            f"{label}: K={k_n}, histogram {route[0]}, lists {route[1]}, total "
+            f"{label}: {n_frames} x {n_atoms} at K={k_n}, largest count "
+            f"{int(counts.max())}; {describe_route(route)}; total "
             f"{float(plain.double().sum()):.6g}, max |diff| {max_diff:.3g}, kernel "
             f"{ms:.4f} ms ({pairs / ms / 1e6:.2f} G pair angles/s), plain {plain_ms:.3f} ms, "
-            f"bound {bound_ms:.4f} ms ({bound_by})",
+            f"bound {bound_ms:.4f} ms ({bound_by}; {100 * bound_ms / ms:.1f} % of it)",
         )
         results[f"angles {label}"] = dict(max_diff=max_diff, ms=ms, plain_ms=plain_ms,
                                           bound_ms=bound_ms, bound_by=bound_by)
@@ -746,26 +833,63 @@ def kernel_record(name: str, launches: int, cases: list, main: dict) -> dict:
 
 def angle_launch(rounds: int = 3) -> None:
     """The angle kernel's one-frame main-path launch (case a1 of ``[2
-    extract]``): device time of its pair kernel alone, and CUDA events
-    around back-to-back calls of the wrapper, ``rounds`` times."""
+    extract]``): device time of its pair kernel, of all its kernels (a
+    checkout may round in a second kernel), and CUDA events around
+    back-to-back calls of the wrapper, ``rounds`` times."""
     from lammps_analysis_tpu_torch.ops import adf_kernel
-    from lammps_analysis_tpu_torch.parallel.sharded_ops import AdfPlan
 
-    pos, sid = make_case(ADF["counts"], 1, ADF["box"], 10, torch.device("cuda"))
-    k_n = AdfPlan(pos.shape[1], ADF["box"], ADF["cutoff"]).k_n
-    *lists, counts = adf_kernel.neighbor_extract(pos, sid, ADF["box"], ADF["cutoff"], k_n, 2)
-    args = (*lists, counts, sid, ADF["n_bins"], 2, 4)
+    (rx, ry, rz, d, sid_n), counts, sid, n_species = main_path_lists(1, torch.device("cuda"))
+    args = (rx, ry, rz, d, sid_n, counts, sid, ADF["n_bins"], n_species, 4)
 
     def call():
         return adf_kernel.adf_pairs_histogram(*args)
 
     for _ in range(rounds):
         ms = device_ms(call, 200, "adf_pairs_histogram", parts=("adf_pairs_kernel",))
+        every = device_ms(call, 200, "adf_pairs_histogram",
+                          parts=("adf_pairs_kernel", "adf_pairs_finish"), present_only=True)
         phase(
             "4 profile",
-            f"angle kernel, one-frame launch at K={k_n}: pair kernel {ms:.4f} ms on the "
-            f"device, {time_ms(call, 200):.4f} ms a call back to back",
+            f"angle kernel, one-frame launch at K={rx.shape[2]}: pair kernel {ms:.4f} ms on "
+            f"the device, all its kernels {every:.4f} ms, {time_ms(call, 200):.4f} ms a "
+            "call back to back",
         )
+
+
+def chunk_sweep() -> None:
+    """``--chunks``: the angle kernel's device time at several chunk sizes,
+    on the one-frame launch, the mixed frame, K = 1076 and 16 frames."""
+    from lammps_analysis_tpu_torch.ops import adf_kernel
+    from lammps_analysis_tpu_torch.ops.adf import (
+        adf_pairs_histogram_reference,
+        neighbor_extract_reference,
+    )
+
+    device = torch.device("cuda")
+    pos, sid = make_case([1300], 1, (10.0,) * 3, 1340, device)
+    *_, counts = neighbor_extract_reference(pos, sid, (10.0,) * 3, 6.0, 1, 1)
+    *found, counts = adf_kernel.neighbor_extract(pos, sid, (10.0,) * 3, 6.0, int(counts.max()), 1)
+    cases = {
+        "a1 one frame": main_path_lists(1, device),
+        "mixed widths": mixed_widths_lists(device),
+        "K=1076": (found, counts, sid, 1),
+        "16 frames": main_path_lists(16, device),
+    }
+    chosen = adf_kernel.PAIRS_CHUNK
+    try:
+        for chunk in (256, 512, 1024, 4096):
+            adf_kernel.PAIRS_CHUNK = chunk
+            for label, ((rx, ry, rz, d, sid_n), counts, sid, n_species) in cases.items():
+                args = (rx, ry, rz, d, sid_n, counts, sid, ADF["n_bins"], n_species, 4)
+                check_hist(f"chunks {chunk} {label}", adf_kernel.adf_pairs_histogram(*args).cpu().numpy(),
+                           adf_pairs_histogram_reference(*args).cpu().numpy())
+                ms = device_ms(lambda: adf_kernel.adf_pairs_histogram(*args),
+                               3 if label == "K=1076" else 30, "adf_pairs_histogram")
+                route = adf_kernel.pairs_histogram_route(n_species, ADF["n_bins"], rx.shape[2],
+                                                         rx.shape[1], rx.shape[0])
+                phase("2 chunks", f"chunk_pairs {chunk}, {label}: {ms:.4f} ms ({describe_route(route)})")
+    finally:
+        adf_kernel.PAIRS_CHUNK = chosen
 
 
 def walls() -> None:
@@ -796,6 +920,10 @@ def main() -> int:
     if sys.argv[1:] == ["--walls"]:
         environment()
         walls()
+        return 0
+    if sys.argv[1:] == ["--chunks"]:
+        environment()
+        chunk_sweep()
         return 0
     card = environment()
     build()

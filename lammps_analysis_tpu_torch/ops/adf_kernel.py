@@ -12,7 +12,9 @@ routes with one contract, ``ops/adf.py::neighbor_extract_reference``'s:
 ``neighbor_extract`` takes the route that ``extract_route`` names, a pure
 function of the shapes. ``adf_pairs_histogram`` wraps
 ``csrc/adf_pairs_histogram.cu`` (counterpart of ``adf_pairs_histogram_pallas``
-with ``fold=True``). Each wrapper checks its inputs, then launches its kernel
+with ``fold=True``); ``pairs_split`` (pure) cuts each center's pairs into
+chunks and sizes the grid, and ``pairs_histogram_route`` reports what a
+launch does. Each wrapper checks its inputs, then launches its kernel
 on CUDA tensors or runs the plain torch version (``ops/adf.py``) on CPU
 tensors; a CUDA tensor never falls back. The kernel library builds from the
 checkout's sources at first use (``_build.py``).
@@ -26,6 +28,8 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import math
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -67,11 +71,13 @@ def _library() -> ctypes.CDLL:
     lib.adf_pairs_histogram_launch.argtypes = (
         [ctypes.c_void_p] * 9
         + [ctypes.c_int64] * 6
-        + [ctypes.c_float, ctypes.c_void_p]
+        + [ctypes.c_float]
+        + [ctypes.c_int64] * 3
+        + [ctypes.c_void_p]
     )
     lib.adf_pairs_histogram_launch.restype = ctypes.c_int
-    lib.adf_pairs_histogram_route.argtypes = [ctypes.c_int64, ctypes.c_int64]
-    lib.adf_pairs_histogram_route.restype = ctypes.c_int
+    lib.adf_pairs_histogram_shape.argtypes = [ctypes.c_int64] + [ctypes.POINTER(ctypes.c_int)] * 4
+    lib.adf_pairs_histogram_shape.restype = ctypes.c_int
     lib.rdf_cuda_error_string.argtypes = [ctypes.c_int]
     lib.rdf_cuda_error_string.restype = ctypes.c_char_p
     return lib
@@ -290,7 +296,9 @@ def adf_pairs_histogram(
     the center species. The contract is
     ``ops/adf.py::adf_pairs_histogram_reference``'s; the kernel sums the
     float32 weights in float64 as the plain version does, with atomics, so
-    sums agree up to their order.
+    sums agree up to their order. On CUDA a call is two device operations: a
+    memset of the float64 scratch and the kernel, split as
+    ``pairs_histogram_route`` reports.
     """
     if not isinstance(rx, torch.Tensor):
         raise TypeError("rx must be a torch tensor")
@@ -317,14 +325,17 @@ def adf_pairs_histogram(
     if n_frames == 0 or n_atoms == 0 or k_n < 2:
         return torch.zeros(shape, dtype=torch.float32, device=device)
     out = torch.empty(shape, dtype=torch.float32, device=device)
-    acc = torch.empty(shape, dtype=torch.float64, device=device)  # cleared by the launch
+    # float64 sums, then one uint32 "blocks done" counter a frame; cleared by the launch
+    scratch = torch.empty(out.numel() + (n_frames + 1) // 2, dtype=torch.float64, device=device)
     lib = _library()
     with torch.cuda.device(device):
+        route = pairs_histogram_route(n_species, n_bins, k_n, n_atoms, n_frames)
         err = lib.adf_pairs_histogram_launch(
             rx.data_ptr(), ry.data_ptr(), rz.data_ptr(), d.data_ptr(),
             sid_n.data_ptr(), counts.data_ptr(), sid_c.data_ptr(), out.data_ptr(),
-            acc.data_ptr(), n_frames, n_atoms, k_n, n_species, n_bins, int(norm_power),
-            bin_scale(n_bins), torch.cuda.current_stream(device).cuda_stream,
+            scratch.data_ptr(), n_frames, n_atoms, k_n, n_species, n_bins, int(norm_power),
+            bin_scale(n_bins), route.chunk_pairs, route.chunks_per_center,
+            route.blocks_per_frame, torch.cuda.current_stream(device).cuda_stream,
         )
     _raise_on(err, lib, "adf_pairs_histogram")
     adf_pairs_histogram.launches += 1
@@ -333,14 +344,70 @@ def adf_pairs_histogram(
 
 adf_pairs_histogram.launches = 0
 
+#: flat pairs of one work unit of the angle kernel: a center with more pairs
+#: is cut into chunks of this many, which go to different warps and blocks
+PAIRS_CHUNK = 1024
 
-def pairs_histogram_route(n_species: int, n_bins: int, k_n: int) -> tuple[str, str]:
-    """Where the angle kernel keeps the float64 histogram and a center's
-    entries (CUDA only): ``("shared" | "global", "staged" | "global")``, by
-    what fits a block's shared-memory opt-in. Every K and every histogram
-    size runs."""
+
+class PairsRoute(NamedTuple):
+    """How the angle kernel runs one launch (``pairs_histogram_route``)."""
+
+    histogram: str  # "shared" (a float64 histogram a block) or "global" (adds into the accumulator)
+    chunk_pairs: int  # flat pairs of one unit
+    chunks_per_center: int  # units of one center
+    blocks_per_frame: int  # grid x; frames are grid y
+    warps_per_block: int
+
+
+def pairs_split(
+    n_frames: int, n_atoms: int, k_n: int, resident_blocks: int, warps_per_block: int,
+    chunk_pairs: int = PAIRS_CHUNK,
+) -> tuple[int, int]:
+    """``(chunks per center, blocks per frame)`` of the angle kernel.
+
+    A center has up to ``K(K-1)/2`` pairs, cut into at least ``ceil(K(K-1)/2
+    / chunk_pairs)`` units. The launch's frames share the ``resident_blocks``
+    that the card holds at once (one wave; at least one block a frame, and no
+    frame more blocks than it has units). The kernel deals unit ``center *
+    chunks + chunk`` to warp ``unit mod warps``: the chunk count is raised to
+    the next one prime to the frame's warps, so that the live chunks of
+    narrow centers (the first few of each) spread over every warp.
+    """
+    pairs_k = k_n * (k_n - 1) // 2
+    chunks = max(1, -(-pairs_k // chunk_pairs))
+    blocks = max(1, resident_blocks // max(n_frames, 1))
+    blocks = min(blocks, max(1, -(-n_atoms * chunks // warps_per_block)))
+    while math.gcd(chunks, blocks * warps_per_block) != 1:
+        chunks += 1
+    return chunks, blocks
+
+
+@functools.lru_cache(maxsize=64)
+def _pairs_shape(n_total_bins: int, device_index: int) -> tuple[bool, int, int, int]:
+    """``(histogram in shared memory, blocks an SM holds, SMs, warps a
+    block)`` of the angle kernel on the device."""
+    shared, per_sm, n_sms, warps = (ctypes.c_int() for _ in range(4))
+    lib = _library()
+    with torch.cuda.device(device_index):
+        err = lib.adf_pairs_histogram_shape(
+            n_total_bins, ctypes.byref(shared), ctypes.byref(per_sm), ctypes.byref(n_sms),
+            ctypes.byref(warps),
+        )
+    _raise_on(err, lib, "adf_pairs_histogram (occupancy)")
+    if per_sm.value < 1:
+        raise RuntimeError(f"the angle kernel fits no SM with {n_total_bins} float64 bins")
+    return bool(shared.value), per_sm.value, n_sms.value, warps.value
+
+
+def pairs_histogram_route(
+    n_species: int, n_bins: int, k_n: int, n_atoms: int, n_frames: int = 1
+) -> PairsRoute:
+    """What the angle kernel does for lists ``(n_frames, n_atoms, k_n)`` on
+    the current CUDA device: where its float64 histogram lives (shared memory
+    when ``n_triples * n_bins`` doubles fit a block's opt-in, else global
+    memory) and how the pairs are split (``pairs_split`` over the blocks the
+    card holds at once). Every K and every histogram size runs."""
     n_total = n_triples_for(n_species) * n_bins
-    code = _library().adf_pairs_histogram_route(n_total, k_n)
-    if code < 0:
-        raise RuntimeError(f"could not size the angle kernel's shared memory (code {code})")
-    return ("shared" if code & 1 else "global", "staged" if code & 2 else "global")
+    shared, per_sm, n_sms, warps = _pairs_shape(n_total, torch.cuda.current_device())
+    chunks, blocks = pairs_split(n_frames, n_atoms, k_n, per_sm * n_sms, warps, PAIRS_CHUNK)
+    return PairsRoute("shared" if shared else "global", PAIRS_CHUNK, chunks, blocks, warps)

@@ -7,12 +7,13 @@ both routes of the neighbor extract (the sweep ``csrc/adf_neighbor_extract.cu``
 and the cell lists ``csrc/adf_neighbor_cells.cu``) must equal
 ``neighbor_extract_reference`` exactly (the binned route on every row whose
 count fits K, and on ``counts`` everywhere); the angle histogram
-(``csrc/adf_pairs_histogram.cu``, any K) must agree with
-``adf_pairs_histogram_reference`` within the JAX package's ADF tolerance
-(totals rtol 1e-5; at most max(2, size // 64) bins outside rtol 1e-4: its
-float64 atomics sum in another order), on the same tensors.
+(``csrc/adf_pairs_histogram.cu``, any K and histogram size, wide lists cut
+into chunks, several frames a launch, edge counts and padding) must agree
+with ``adf_pairs_histogram_reference`` within the JAX package's ADF
+tolerance (totals rtol 1e-5; at most max(2, size // 64) bins outside rtol
+1e-4: its float64 atomics sum in another order), on the same tensors.
 Marked ``cuda``; without a CUDA device every test skips. On a machine with a
-card: ``python -m pytest tests/test_torch_kernels_cuda.py -m cuda``.
+card: ``python -m pytest tests/test_torch_kernels_cuda.py -m cuda --noconftest``.
 """
 
 import numpy as np
@@ -182,41 +183,106 @@ def test_pairs_histogram_matches_plain(cuda, counts, n_bins, p, hist):
     *lists, n_in = adf_kernel.neighbor_extract(*args)
     assert int(n_in.max()) <= 96
     s = len(counts)
-    assert adf_kernel.pairs_histogram_route(s, n_bins, 96) == (hist, "staged")
+    route = adf_kernel.pairs_histogram_route(s, n_bins, 96, pos.shape[1], 2)
+    assert route.histogram == hist and route.chunks_per_center >= 5  # 4560 pairs at K = 96
     launches = adf_kernel.adf_pairs_histogram.launches
     ours = adf_kernel.adf_pairs_histogram(*lists, n_in, sid, n_bins, s, p)
     torch.cuda.synchronize()
     assert adf_kernel.adf_pairs_histogram.launches == launches + 1
-    plain = adf_pairs_histogram_reference(*lists, n_in, sid, n_bins, s, p)
+    _assert_adf_close(ours, adf_pairs_histogram_reference(*lists, n_in, sid, n_bins, s, p))
+
+
+def _assert_adf_close(ours, plain):
+    """The ADF allowance: totals rtol 1e-5, at most max(2, size // 64) bins
+    outside rtol 1e-4 (float64 atomics add in another order)."""
     ours, plain = ours.double().cpu().numpy(), plain.double().cpu().numpy()
-    assert plain.sum() > 0
+    assert ours.shape == plain.shape and plain.sum() > 0
     np.testing.assert_allclose(ours.sum(), plain.sum(), rtol=1e-5)
     bad = ~np.isclose(ours, plain, rtol=1e-4, atol=1e-6)
     assert bad.sum() <= max(2, plain.size // 64), f"{bad.sum()} bins differ"
+    print(f"max |diff| {np.abs(ours - plain).max()}")
 
 
 @pytest.mark.parametrize(
-    "n_atoms, n_bins, route",
+    "n_atoms, n_bins, hist",
     [
-        (1300, 500, ("shared", "staged")),
-        (2000, 500, ("shared", "global")),
-        (1300, 30000, ("global", "staged")),  # 240 KB of float64 bins: no shared histogram
+        (1300, 500, "shared"),
+        (2000, 500, "shared"),
+        (1300, 30000, "global"),  # 240 KB of float64 bins: no shared histogram
     ],
     ids=["K-1100-staged", "K-1800-from-global", "K-1100-global-histogram"],
 )
-def test_pairs_histogram_takes_lists_wider_than_1024(cuda, n_atoms, n_bins, route):
-    """10 A box, 6 A cutoff: about 1100 and 1800 neighbors per center."""
+def test_pairs_histogram_takes_lists_wider_than_1024(cuda, n_atoms, n_bins, hist):
+    """10 A box, 6 A cutoff: about 1100 and 1800 neighbors per center, each
+    cut into hundreds of chunks over every SM."""
     box = (10.0, 10.0, 10.0)
     pos, sid, args = _adf_lists([n_atoms], 1, box, 6.0, n_atoms, 23, cuda)
     *_, n_in = neighbor_extract_reference(*args[:4], 1, 1)
     k_n = int(n_in.max())
     assert k_n > 1024
     *lists, n_in = adf_kernel.neighbor_extract(*args[:4], k_n, 1)
-    assert adf_kernel.pairs_histogram_route(1, n_bins, k_n) == route
+    route = adf_kernel.pairs_histogram_route(1, n_bins, k_n, pos.shape[1])
+    n_sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert route.histogram == hist and route.chunks_per_center > 100
+    assert route.blocks_per_frame >= n_sms
     ours = adf_kernel.adf_pairs_histogram(*lists, n_in, sid, n_bins, 1, 4)
-    plain = adf_pairs_histogram_reference(*lists, n_in, sid, n_bins, 1, 4)
-    ours, plain = ours.double().cpu().numpy(), plain.double().cpu().numpy()
-    assert plain.sum() > 0
-    np.testing.assert_allclose(ours.sum(), plain.sum(), rtol=1e-5)
-    bad = ~np.isclose(ours, plain, rtol=1e-4, atol=1e-6)
-    assert bad.sum() <= max(2, plain.size // 64), f"{bad.sum()} bins differ"
+    _assert_adf_close(ours, adf_pairs_histogram_reference(*lists, n_in, sid, n_bins, 1, 4))
+
+
+def test_pairs_histogram_main_path_frame_fills_the_card(cuda):
+    """One frame of the ADF main path (10240 atoms, 40 A, 3.6 A, K = 88):
+    one wave of blocks on every SM."""
+    box = (40.0, 40.0, 40.0)
+    pos, sid, args = _adf_lists([5120, 5120], 1, box, 3.6, 88, 31, cuda)
+    *lists, n_in = adf_kernel.neighbor_extract(*args)
+    assert int(n_in.max()) <= 88
+    route = adf_kernel.pairs_histogram_route(2, 500, 88, pos.shape[1])
+    n_sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert route.histogram == "shared" and route.blocks_per_frame % n_sms == 0
+    ours = adf_kernel.adf_pairs_histogram(*lists, n_in, sid, 500, 2, 4)
+    _assert_adf_close(ours, adf_pairs_histogram_reference(*lists, n_in, sid, 500, 2, 4))
+
+
+def test_pairs_histogram_many_frames_in_one_launch(cuda):
+    """Eight main-path frames in one launch: each its own histogram."""
+    box = (40.0, 40.0, 40.0)
+    pos, sid, args = _adf_lists([5120, 5120], 8, box, 3.6, 88, 32, cuda)
+    *lists, n_in = adf_kernel.neighbor_extract(*args)
+    ours = adf_kernel.adf_pairs_histogram(*lists, n_in, sid, 500, 2, 4)
+    plain = adf_pairs_histogram_reference(*lists, n_in, sid, 500, 2, 4)
+    for f in range(8):
+        _assert_adf_close(ours[f], plain[f])
+
+
+def test_pairs_histogram_mixed_widths(cuda):
+    """First shells and a dense cluster of a few hundred neighbors in one
+    frame: staged narrow lists and wide lists cut into chunks, one launch."""
+    box = (40.0, 40.0, 40.0)
+    pos, sid = _case([5120, 5120], 1, box, seed=33, device=cuda)
+    rng = np.random.default_rng(34)
+    pos[0, :400] = torch.from_numpy(rng.uniform(20.0, 23.0, (400, 3)).astype(np.float32)).to(cuda)
+    *_, n_in = neighbor_extract_reference(pos, sid, box, 3.6, 1, 2)
+    k_n = -(-int(n_in.max()) // 8) * 8
+    assert k_n > 200
+    *lists, n_in = adf_kernel.neighbor_extract(pos, sid, box, 3.6, k_n, 2)
+    assert adf_kernel.pairs_histogram_route(2, 500, k_n, pos.shape[1]).chunks_per_center > 1
+    ours = adf_kernel.adf_pairs_histogram(*lists, n_in, sid, 500, 2, 4)
+    _assert_adf_close(ours, adf_pairs_histogram_reference(*lists, n_in, sid, 500, 2, 4))
+
+
+@pytest.mark.parametrize("k_n", [40, 200])  # every list staged; the wide ones from global memory
+def test_pairs_histogram_edge_counts(cuda, k_n):
+    """Centers with 0, 1, 2, 32, 33, K and more than K entries, padding ids
+    (-1 and S) among neighbors and centers, zero-length entries."""
+    rng = np.random.default_rng(k_n)
+    n_frames, n_atoms = 2, 3000
+    r = rng.normal(size=(3, n_frames, n_atoms, k_n)).astype(np.float32)
+    r[:, rng.random((n_frames, n_atoms, k_n)) < 0.01] = 0.0
+    dist = np.sqrt((r * r).sum(0), dtype=np.float32)
+    ids = np.array([-1, 0, 1, 2], np.int32)
+    sid_n = rng.choice(ids, size=(n_frames, n_atoms, k_n))
+    counts = rng.choice(np.array([0, 1, 2, 32, 33, k_n, k_n + 5], np.int32), size=(n_frames, n_atoms))
+    sid_c = rng.choice(ids, size=n_atoms)
+    lists = [torch.from_numpy(np.ascontiguousarray(a)).to(cuda) for a in (*r, dist, sid_n)]
+    args = (*lists, torch.from_numpy(counts).to(cuda), torch.from_numpy(sid_c).to(cuda), 500, 2, 4)
+    _assert_adf_close(adf_kernel.adf_pairs_histogram(*args), adf_pairs_histogram_reference(*args))
