@@ -36,13 +36,28 @@ Phases, one line each (any failure raises and the exit code is not 0):
    * ``[3 main]`` the RDF, 64 frames x 10240 atoms, 500 bins;
    * ``[3 adf]`` the ADF, 16 frames x 10240 atoms, cutoff 3.6 A, 500 bins,
      through the binned extract (16 launches, no sweep, no plain call);
+   * ``[3 transport]`` the transport path from a file: a LAMMPS dump of the
+     same system (500 frames, shuffled ids, wrapped positions, a random walk
+     of 0.3 A a frame per axis whose step is exactly the written velocity
+     times the frame interval) -> ``add_experiment(simulation_data=path)``
+     (metadata and parse rate) -> the RDF on K1 from the file ->
+     ``EinsteinDiffusionCoefficients`` (auto-unwrap on the card; unwrapped
+     positions within 1e-3 A of the walk, D within 3 % of sigma^2 / (2 dt))
+     and ``GreenKuboDiffusionCoefficients`` (D within 5 % of the same and of
+     Einstein's), Na's MSD and ACF series equal to float64 direct sums of
+     the stored arrays on the CPU (``tests/torch_dumps.py``, the tests'
+     tolerance), slabs and transformation on the card, FFT and reduction
+     kernels in the trace, cache hits, and card == CPU on a small dump
+     (parsed arrays identical, series within the transport tolerance);
 4. ``[4 profile]``: seven forced (not cached) calls of each main path on the
    warm process (median wall), then one under ``torch.profiler``: device
    time per kernel, the largest device consumers, and the share of the call
-   the device is busy.
+   the device is busy; for the transport path also a forced Einstein call
+   that re-runs the unwrap, the ingest wall and M window-frame-atoms/s.
 
-``--walls`` runs only the forced-call medians and the angle kernel's
-one-frame launch, for an A/B of two checkouts on one card. ``--chunks`` times
+``--walls`` runs only the forced-call medians (the transport path's too)
+and the angle kernel's one-frame launch, for an A/B of two checkouts on one
+card. ``--chunks`` times
 the angle kernel at several chunk sizes (``adf_kernel.PAIRS_CHUNK``) on the
 one-frame launch, the mixed frame, K = 1076 and 16 main-path frames.
 
@@ -54,15 +69,25 @@ printing either.
 
 from __future__ import annotations
 
+import contextlib
 import importlib.util
+import inspect
 import json
+import pathlib
+import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
 import torch
+
+# the transport dump's generator and writer and the transport tolerance,
+# shared with the tests
+sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent / "tests"))
+import torch_dumps  # noqa: E402
 
 CSRC = "lammps_analysis_tpu_torch/csrc/"
 REPLACES = {
@@ -90,6 +115,10 @@ BENCH = dict(counts=[5120, 5120], box=(40.0, 40.0, 40.0), cutoff=19.9, n_bins=50
 # its ADF first-shell workload (bench.py:192-229): the same system, cutoff 3.6 A
 ADF = dict(counts=[5120, 5120], box=(40.0, 40.0, 40.0), cutoff=3.6, n_bins=500)
 ADF_RANGE = 3.15  # radians, ops/adf.py::ADF_BIN_RANGE
+# the transport path's dump: the same system, 500 frames written every 10
+# steps of 0.002 ps (metal units), a random walk of 0.3 A a frame per axis
+TRANSPORT = dict(counts=[5120, 5120], box=40.0, n_frames=500, timestep=0.002,
+                 every=10, sigma=0.3, data_range=200)
 
 
 def phase(name: str, message: str) -> None:
@@ -124,6 +153,11 @@ def environment() -> str:
         for mod in ("h5py", "pandas", "psutil", "matplotlib")
     }
     phase("0 env", f"optional packages present (not needed): {optional}")
+    gxx = shutil.which("g++")
+    if gxx is None:
+        raise RuntimeError("no g++ on PATH: the dump reader's native parser is built with it")
+    version = subprocess.run([gxx, "--version"], capture_output=True, text=True, timeout=60)
+    phase("0 env", f"g++ for the table parser: {gxx}, {version.stdout.splitlines()[0]}")
     smi = card_power_line()
     print(smi, flush=True)
     return smi
@@ -142,6 +176,11 @@ def build() -> None:
         if "registers" in line or "Compiling entry" in line
     ]
     phase("1 build", f"{path.name} in {seconds:.1f} s; ptxas: {' | '.join(usage)}")
+    from lammps_analysis_tpu_torch.file_io import native_parser
+
+    t0 = time.perf_counter()
+    parser = native_parser.build()
+    phase("1 build", f"table parser {parser.name} in {time.perf_counter() - t0:.1f} s (g++)")
 
 
 def make_case(counts, n_frames, box, seed, device):
@@ -578,7 +617,9 @@ def forced_calls(label: str, fn, n: int = 7) -> float:
 
 def profile_call(label: str, fn) -> dict:
     """Run ``fn`` once under ``torch.profiler``: device time and launches per
-    kernel record, and the share of the call the device was busy."""
+    kernel record, and the share of the call the device was busy. Returns
+    ``records`` (per kernel record), ``names`` (device time by kernel name,
+    microseconds), ``device_ms`` and ``busy`` (the busy share)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
 
@@ -627,7 +668,7 @@ def profile_call(label: str, fn) -> dict:
             for name, v in per_record.items()
         ),
     )
-    return per_record
+    return dict(records=per_record, names=by_name, device_ms=busy / 1e3, busy=busy / wall_us)
 
 
 def ingest(root, counts, n_frames, box, seed):
@@ -815,6 +856,301 @@ def adf_main_path(card: str) -> tuple[dict, dict]:
     return launches, profiled
 
 
+def transport_dump(root):
+    """The transport dump under ``root``: ``(path, unwrapped walk, dt, MB)``."""
+    c = TRANSPORT
+    dt = c["timestep"] * c["every"]
+    t0 = time.perf_counter()
+    wrapped, unwrapped, vel, names = torch_dumps.random_walk(
+        c["counts"], c["n_frames"], c["box"], c["sigma"], dt, seed=2026
+    )
+    path = pathlib.Path(root) / "nacl.lammpstrj"
+    torch_dumps.write_dump(path, c["box"], torch_dumps.walk_columns(wrapped, vel, names),
+                           every=c["every"], shuffle_seed=2027)
+    size_mb = path.stat().st_size / 1e6
+    phase("3 transport", f"dump: {sum(c['counts'])} atoms x {c['n_frames']} frames, {size_mb:.1f} "
+          f"MB written in {time.perf_counter() - t0:.1f} s")
+    return path, unwrapped, dt, size_mb
+
+
+def ingest_dump(root, path):
+    """``(experiment, seconds)``: a Project under ``root`` ingesting ``path``."""
+    import lammps_analysis_tpu_torch as lt
+
+    project = lt.Project(name="transport", storage_path=root)
+    t0 = time.perf_counter()
+    exp = project.add_experiment(
+        "t", timestep=TRANSPORT["timestep"], units="metal", simulation_data=str(path)
+    )
+    return exp, time.perf_counter() - t0
+
+
+class Spy:
+    """Wrap ``owner.attr`` for the duration of a ``with``: count its calls,
+    record the device type of its first tensor argument and add up its wall
+    seconds (with ``sync``, after a device synchronise; a generator it returns
+    is timed per item, which is the time its consumer waits). Calls may come
+    from several threads."""
+
+    def __init__(self, owner, attr, sync=False):
+        self.owner, self.attr, self.sync = owner, attr, sync
+        self.devices, self.calls, self.seconds = set(), 0, 0.0
+        self._lock = threading.Lock()
+
+    def _add(self, seconds):
+        with self._lock:
+            self.seconds += seconds
+
+    def _timed_items(self, generator):
+        while True:
+            t0 = time.perf_counter()
+            try:
+                item = next(generator)
+            except StopIteration:
+                return
+            finally:
+                self._add(time.perf_counter() - t0)
+            yield item
+
+    def __enter__(self):
+        self.original = getattr(self.owner, self.attr)
+
+        def spy(*args, **kwargs):
+            with self._lock:
+                self.calls += 1
+            for a in list(args) + list(kwargs.values()):
+                if isinstance(a, dict) and a:
+                    a = next(iter(a.values()))
+                if isinstance(a, torch.Tensor):
+                    self.devices.add(a.device.type)
+                    break
+            t0 = time.perf_counter()
+            out = self.original(*args, **kwargs)
+            if inspect.isgenerator(out):
+                return self._timed_items(out)
+            if self.sync:
+                torch.cuda.synchronize()
+            self._add(time.perf_counter() - t0)
+            return out
+
+        setattr(self.owner, self.attr, spy)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.owner, self.attr, self.original)
+
+
+def layer_spans(exp, einstein_with_unwrap, gk) -> None:
+    """One forced call of each transport calculator with every layer timed
+    (host wall, device work synchronised at the end of each span): store
+    reads and writes, the unwrap, the wait for the next slab (store read,
+    pin and host-to-device copy not hidden behind compute), the MSD comb or
+    the ACF, the host fit, the results DB (lookups, deletes, stores and the
+    experiment's attributes); the rest is the calculators' own host code."""
+    from lammps_analysis_tpu_torch.calculators import (
+        base as calc_base,
+        einstein_diffusion_coefficients as einstein_module,
+        green_kubo_diffusion_coefficients as gk_module,
+    )
+    from lammps_analysis_tpu_torch.database.results_db import ResultsDatabase
+    from lammps_analysis_tpu_torch.ops import correlation, msd
+    from lammps_analysis_tpu_torch.database.trajectory_store import TrajectoryStore
+    from lammps_analysis_tpu_torch.transformations import CoordinateUnwrapper
+
+    db_methods = ("find_computation", "store_computation", "delete_computations",
+                  "get_attribute", "set_attribute")
+    for label, fn, device_op, fit in (
+        ("Einstein with the unwrap re-run", einstein_with_unwrap,
+         (msd, "windowed_msd_sum"), (einstein_module, "fit_einstein_curve")),
+        ("GK", gk, (correlation, "windowed_acf_sum"), (gk_module, "cumulative_trapezoid")),
+    ):
+        with contextlib.ExitStack() as stack:
+            spans = {
+                "store reads (all threads)": Spy(TrajectoryStore, "load"),
+                "store dataset creation": Spy(TrajectoryStore, "ensure_dataset"),
+                "store writes": Spy(TrajectoryStore, "append"),
+                "unwrap on the device": Spy(CoordinateUnwrapper, "transform_batch", sync=True),
+                "waits for the next slab": Spy(calc_base, "prefetch_to_device"),
+                f"{device_op[1]} on the device": Spy(*device_op, sync=True),
+                f"host {fit[1]}": Spy(*fit),
+            }
+            db = [stack.enter_context(Spy(ResultsDatabase, m)) for m in db_methods]
+            for spy in spans.values():
+                stack.enter_context(spy)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            total = time.perf_counter() - t0
+        db_ms = sum(spy.seconds for spy in db) * 1e3
+        phase("4 profile", f"{label}, layer spans: {total * 1e3:.3f} ms in all; " + "; ".join(
+            f"{name} {spy.seconds * 1e3:.3f} ms in {spy.calls} call(s)" for name, spy in spans.items()
+        ) + f"; results DB {db_ms:.3f} ms in {sum(spy.calls for spy in db)} call(s)")
+
+
+def transport_main_path(card: str) -> dict:
+    from lammps_analysis_tpu_torch import config
+    from lammps_analysis_tpu_torch.file_io import LAMMPSDumpFile
+    from lammps_analysis_tpu_torch.memory.planner import BatchPlanner
+    from lammps_analysis_tpu_torch.ops import correlation, msd, rdf_kernel
+    from lammps_analysis_tpu_torch.ops.rdf import rdf_histogram_reference
+    from lammps_analysis_tpu_torch.transformations import CoordinateUnwrapper
+
+    c = TRANSPORT
+    n_na, n_cl = c["counts"]
+    n_atoms, data_range = n_na + n_cl, c["data_range"]
+    config.device = "cuda"
+    with tempfile.TemporaryDirectory() as root:
+        dump, unwrapped, dt, size_mb = transport_dump(root)
+        t0 = time.perf_counter()
+        reader = LAMMPSDumpFile(dump)
+        n_parsed = sum(chunk.chunk_size for chunk in reader.get_configurations_generator())
+        parse_s = time.perf_counter() - t0
+        exp, ingest_s = ingest_dump(root, dump)
+        species = {k: v.n_particles for k, v in exp.species.items()}
+        if (n_parsed, exp.number_of_configurations) != (c["n_frames"],) * 2 or species != {
+            "Na": n_na, "Cl": n_cl
+        } or exp.box_array != [c["box"]] * 3 or exp.sample_rate != c["every"]:
+            raise RuntimeError(
+                f"transport: metadata {exp.number_of_configurations} frames, {species}, box "
+                f"{exp.box_array}, sample rate {exp.sample_rate}"
+            )
+        phase("3 transport", f"parse {size_mb / parse_s:.1f} MB/s ({parse_s:.3f} s, reader alone); "
+              f"ingest {ingest_s:.3f} s ({size_mb / ingest_s:.1f} MB/s, parse + npy store); "
+              f"{c['n_frames']} frames, Na {n_na} + Cl {n_cl}, box {exp.box_array}, sample rate "
+              f"{exp.sample_rate}")
+
+        rdf_kernel.launches = 0
+        rdf_histogram_reference.calls = 0
+        rdf = exp.run.RadialDistributionFunction(
+            number_of_configurations=64, cutoff=BENCH["cutoff"], number_of_bins=BENCH["n_bins"],
+            plot=False,
+        )
+        launches, plain = rdf_kernel.launches, rdf_histogram_reference.calls
+        x_angstrom = np.asarray(rdf["Na_Cl"]["x"]) * 10.0
+        median = float(np.median(np.asarray(rdf["Na_Cl"]["y"])[(x_angstrom >= 5.0) & (x_angstrom <= 19.9)]))
+        if launches < 1 or plain != 0 or abs(median - 1.0) > 0.02:
+            raise RuntimeError(f"transport: RDF from the file had {launches} launches, {plain} "
+                               f"plain calls, Na_Cl median {median}")
+        phase("3 transport", f"RDF from the file, 64 frames: K1 launches {launches}, plain calls 0, "
+              f"Na_Cl g(r) median over 5-19.9 A {median:.5f}")
+
+        expected = c["sigma"] ** 2 / (2 * dt) * 1e-8  # A^2/ps -> m^2/s
+        kw = dict(data_range=data_range, correlation_time=1, plot=False)
+        with Spy(CoordinateUnwrapper, "transform_batch") as unwrap, \
+                Spy(msd, "windowed_msd_sum") as comb:
+            t0 = time.perf_counter()
+            einstein = exp.run.EinsteinDiffusionCoefficients(**kw)
+            einstein_s = time.perf_counter() - t0
+        worst = 0.0
+        for sp, rows in (("Na", slice(0, n_na)), ("Cl", slice(n_na, n_atoms))):
+            stored = exp.store.load([f"{sp}/Unwrapped_Positions"])[f"{sp}/Unwrapped_Positions"]
+            worst = max(worst, float(np.abs(stored - unwrapped[:, rows]).max()))
+        if worst > 1e-3:
+            raise RuntimeError(f"transport: unwrapped positions {worst} A from the walk")
+        with Spy(correlation, "windowed_acf_sum") as acf:
+            t0 = time.perf_counter()
+            gk = exp.run.GreenKuboDiffusionCoefficients(**kw)
+            gk_s = time.perf_counter() - t0
+        if {"cuda"} != unwrap.devices or {"cuda"} != comb.devices or {"cuda"} != acf.devices:
+            raise RuntimeError(f"transport: devices unwrap {unwrap.devices}, MSD {comb.devices}, "
+                               f"ACF {acf.devices}; all must be cuda")
+        phase("3 transport", f"Einstein (auto-unwrap, {unwrap.calls} unwrap slab(s) on "
+              f"{unwrap.devices}, {comb.calls} MSD slab(s) on {comb.devices}) {einstein_s:.3f} s; "
+              f"unwrapped positions within {worst:.2e} A of the walk; GK ({acf.calls} ACF slab(s) "
+              f"on {acf.devices}) {gk_s:.3f} s")
+        for sp in ("Na", "Cl"):
+            d_e = float(einstein[sp]["diffusion_coefficient"])
+            d_gk = float(gk[sp]["diffusion_coefficient"][0])
+            bad = abs(d_e / expected - 1) > 0.03 or abs(d_gk / expected - 1) > 0.05 \
+                or abs(d_gk / d_e - 1) > 0.05
+            phase("3 transport", f"{sp}: D Einstein {d_e:.6e}, GK {d_gk:.6e}, sigma^2/(2 dt) "
+                  f"{expected:.6e} m^2/s ({100 * (d_e / expected - 1):+.2f} %, "
+                  f"{100 * (d_gk / expected - 1):+.2f} %)")
+            if bad:
+                raise RuntimeError(f"transport: {sp} D outside 3 % (Einstein) or 5 % (GK)")
+        t0 = time.perf_counter()
+        arrays = exp.store.load(["Na/Unwrapped_Positions", "Na/Velocities"])
+        errors = torch_dumps.assert_series_match_direct(
+            einstein.data_dict["Na"], gk.data_dict["Na"], arrays["Na/Unwrapped_Positions"],
+            arrays["Na/Velocities"], data_range, 1, exp.units.length, exp.units.time,
+        )
+        phase("3 transport", f"Na MSD and ACF series ({c['n_frames']} frames x {n_na} atoms, range "
+              f"{data_range}) = float64 direct sums on the CPU: MSD largest relative error "
+              f"{errors['msd']:.3e} (rtol 1e-5), ACF largest error {errors['acf']:.3e} x acf[0] "
+              f"(rtol 1e-5 + 1e-5 x acf[0]); {time.perf_counter() - t0:.1f} s")
+
+        with Spy(msd, "windowed_msd_sum") as comb, \
+                Spy(correlation, "windowed_acf_sum") as acf:
+            again = (exp.run.EinsteinDiffusionCoefficients(**kw), exp.run.GreenKuboDiffusionCoefficients(**kw))
+        if comb.calls or acf.calls or again[0].data_dict != einstein.data_dict \
+                or again[1].data_dict != gk.data_dict:
+            raise RuntimeError("transport: the second calls were not cache hits")
+        phase("3 transport", "second calls: cache hits, no MSD or ACF slab")
+
+        def forced_einstein():
+            return exp.run.EinsteinDiffusionCoefficients(force=True, **kw)
+
+        def forced_gk():
+            return exp.run.GreenKuboDiffusionCoefficients(force=True, **kw)
+
+        def forced_unwrap():
+            for sp in ("Na", "Cl"):
+                exp.store.drop(f"{sp}/Unwrapped_Positions")
+            return forced_einstein()
+
+        wfa = BatchPlanner.window_plan(c["n_frames"], data_range, 1) * data_range * n_atoms
+        walls = {}
+        size = f"{c['n_frames']} frames x {n_atoms} atoms, range {data_range}"
+        for label, fn in (("Einstein", forced_einstein), ("GK", forced_gk)):
+            walls[label] = forced_calls(f"{label} {size}, forced", fn)
+            phase("4 profile", f"{label}: {wfa / walls[label] / 1e3:.1f} M window-frame-atoms/s")
+        t0 = time.perf_counter()
+        forced_unwrap()
+        phase("4 profile", f"Einstein forced with the unwrap re-run: "
+              f"{(time.perf_counter() - t0) * 1e3:.3f} ms")
+        phase("4 profile", f"ingest of the {size_mb:.1f} MB dump: {ingest_s * 1e3:.3f} ms")
+        traces = {}
+        for label, fn in (("Einstein", forced_einstein), ("GK", forced_gk),
+                          ("Einstein with the unwrap re-run", forced_unwrap)):
+            traces[label] = profile_call(f"{label} {size}, forced", fn)
+        layer_spans(exp, forced_unwrap, forced_gk)
+        names_gk = " ".join(traces["GK"]["names"]).lower()
+        names_e = " ".join(traces["Einstein"]["names"]).lower()
+        if "fft" not in names_gk or "reduce" not in names_gk or "reduce" not in names_e:
+            raise RuntimeError("transport: the trace lacks device FFT or reduction kernels")
+        phase("3 transport", "device FFT and reduction kernels in the trace")
+
+    # the same path from a small dump, on the card and on the CPU
+    outputs = {}
+    for device in ("cuda", "cpu"):
+        config.device = device
+        with tempfile.TemporaryDirectory() as root:
+            wrapped, _, vel, names = torch_dumps.random_walk(
+                [300, 200], 60, c["box"], c["sigma"], c["timestep"] * c["every"], seed=9
+            )
+            torch_dumps.write_dump(pathlib.Path(root) / "small.lammpstrj", c["box"],
+                                   torch_dumps.walk_columns(wrapped, vel, names),
+                                   every=c["every"], shuffle_seed=10)
+            small, _ = ingest_dump(root, pathlib.Path(root) / "small.lammpstrj")
+            arrays = small.store.load([f"{sp}/{p}" for sp in ("Na", "Cl")
+                                       for p in ("Positions", "Velocities")])
+            kw = dict(data_range=20, plot=False)
+            outputs[device] = arrays, (
+                small.run.EinsteinDiffusionCoefficients(**kw).data_dict,
+                small.run.GreenKuboDiffusionCoefficients(**kw).data_dict,
+            )
+    config.device = "cuda"
+    if any(not np.array_equal(a, outputs["cpu"][0][k]) for k, a in outputs["cuda"][0].items()):
+        raise RuntimeError("transport: parsed arrays differ between the card and the CPU runs")
+    (e_card, gk_card), (e_cpu, gk_cpu) = outputs["cuda"][1], outputs["cpu"][1]
+    torch_dumps.assert_einstein_close(e_card, e_cpu)
+    torch_dumps.assert_gk_close(gk_card, gk_cpu)
+    phase("3 transport", "small dump (300 + 200 atoms, 60 frames): parsed arrays identical, "
+          "Einstein and GK on the card = CPU within the transport tolerance")
+    return dict(walls=walls, traces=traces, launches=launches)
+
+
+
 def kernel_record(name: str, launches: int, cases: list, main: dict) -> dict:
     return {
         "name": name,
@@ -893,8 +1229,8 @@ def chunk_sweep() -> None:
 
 
 def walls() -> None:
-    """``--walls``: only the forced-call medians of both main paths and the
-    angle kernel's one-frame launch, for an A/B of two checkouts on one card
+    """``--walls``: only the forced-call medians of the main paths (RDF, ADF,
+    Einstein, Green-Kubo) and the angle kernel's one-frame launch, for an A/B of two checkouts on one card
     (copy this script into the other checkout and run it there too)."""
     from lammps_analysis_tpu_torch import config
 
@@ -913,6 +1249,14 @@ def walls() -> None:
         exp.run.AngularDistributionFunction(**kw)
         forced_calls("ADF 16 frames x 10240 atoms, forced",
                      lambda: exp.run.AngularDistributionFunction(force=True, **kw), n=15)
+    with tempfile.TemporaryDirectory() as root:
+        exp, _ = ingest_dump(root, transport_dump(root)[0])
+        kw = dict(data_range=TRANSPORT["data_range"], correlation_time=1, plot=False)
+        for name in ("EinsteinDiffusionCoefficients", "GreenKuboDiffusionCoefficients"):
+            getattr(exp.run, name)(**kw)  # the first Einstein call materialises the unwrap
+            forced_calls(f"{name} {TRANSPORT['n_frames']} frames x {sum(TRANSPORT['counts'])} "
+                         f"atoms, range {TRANSPORT['data_range']}, forced",
+                         lambda name=name: getattr(exp.run, name)(force=True, **kw))
     angle_launch()
 
 
@@ -931,6 +1275,7 @@ def main() -> int:
     adf = adf_kernels_vs_plain()
     rdf_launches, _ = main_path(card)
     adf_launches, _ = adf_main_path(card)
+    transport_main_path(card)
 
     def cases(prefix):
         return [v for k, v in adf.items() if k.startswith(prefix)]

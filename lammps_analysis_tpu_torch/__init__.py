@@ -2,13 +2,17 @@
 
 The JAX package (``lammps_analysis_tpu``) stays the reference; this package
 grows beside it slice by slice and imports neither it nor jax. It carries
-in-memory ingestion into an npy trajectory store,
+ingestion of LAMMPS dumps (through the native table parser) and in-memory
+sources into an npy trajectory store,
 ``exp.run.RadialDistributionFunction(...)`` on the pair-distance histogram
 (``csrc/rdf_histogram.cu``) and ``exp.run.AngularDistributionFunction(...)``
 on the neighbor extract and the angle histogram
-(``csrc/adf_neighbor_extract.cu``, ``csrc/adf_pairs_histogram.cu``): CUDA
-kernels written by hand for Hopper, each with a plain torch version beside
-it.
+(``csrc/adf_neighbor_cells.cu``, ``csrc/adf_neighbor_extract.cu``,
+``csrc/adf_pairs_histogram.cu``): CUDA kernels written by hand for Hopper,
+each with a plain torch version beside it. The coordinate transformations
+and ``exp.run.EinsteinDiffusionCoefficients(...)`` /
+``exp.run.GreenKuboDiffusionCoefficients(...)`` run as torch ops (the JAX
+package runs them on XLA ops, no Pallas kernel).
 
 Device-side work runs on ``torch.device(config.device)``, ``"cuda"`` by
 default; set ``config.device = "cpu"`` for the plain torch path.

@@ -7,15 +7,20 @@ and experiment version; a miss runs the analysis and persists per-subject
 result series; the return value is a :class:`Computation` (or
 ``{experiment: Computation}`` when invoked from a project).
 
-``TrajectoryCalculator`` carries only what the RDF needs: atom selections,
-the concatenated-positions loader and the batch plan. Transformations are
-not ported yet, so the dependency check only verifies that the streamed
-property exists. Plotting is not ported yet either.
+``TrajectoryCalculator`` carries atom selections, the concatenated-positions
+loader of the structural calculators, the dependency check that runs the
+transformation producing a missing property, and the windowed stream of the
+correlation calculators: window-aligned frame slabs, split along the atom
+axis when one window of all atoms exceeds the memory budget, loaded in
+float32 and copied to ``config.device`` one slab ahead. The JAX package's
+fused unwrap stream (``config.fuse_streaming``) and multi-species stream are
+later slices. Plotting is not ported yet.
 """
 
 from __future__ import annotations
 
 import abc
+import dataclasses
 import logging
 from typing import Any, Dict, List, Optional, Union
 
@@ -24,8 +29,54 @@ import numpy as np
 from ..database.results_db import Computation
 from ..database.trajectory_store import join_path
 from ..memory.planner import BatchPlan
+from ..pipeline.prefetch import prefetch_to_device
+from ..transformations.registry import transformation_for_property
+from ..utils.progress import progress_iter
 
 log = logging.getLogger(__name__)
+
+
+def window_aligned_slabs(
+    n_frames: int, slab: int, data_range: int, correlation_time: int
+) -> List[tuple]:
+    """Window-aligned (start, stop) slabs covering every sliding window.
+
+    The windows of a whole-array run start at ``0, ct, 2*ct, ...`` while
+    ``start + data_range <= n_frames``. Each slab begins on a window start
+    and is long enough for at least one window, so iterating windows
+    slab-relatively (``0, ct, ...`` within each slab) enumerates exactly
+    the global window set, each window once (property-tested).
+    """
+    slab = max(slab, data_range)
+    slabs = []
+    start = 0
+    while start + data_range <= n_frames:
+        stop = min(start + slab, n_frames)
+        slabs.append((start, stop))
+        if stop >= n_frames:
+            break
+        n_windows = (stop - start - data_range) // correlation_time + 1
+        start = start + n_windows * correlation_time
+    return slabs
+
+
+@dataclasses.dataclass(frozen=True)
+class StreamSlabInfo:
+    """Provenance of one streamed slab (atom-minibatch aware).
+
+    ``group``/``n_groups`` describe the atom-axis minibatch the slab belongs
+    to: when one ``data_range``-frame window of all atoms exceeds the memory
+    budget, the stream splits the (selected) atoms into ``n_groups``
+    contiguous groups and re-streams the frame slabs per group (reference
+    atom-wise minibatching, ``memory_manager.py:257-340``).
+    """
+
+    start: int  # global frame start of the slab
+    stop: int  # global frame stop (exclusive)
+    slab_index: int  # position in the slab sequence (same for every group)
+    n_slabs: int
+    group: int  # atom-group index
+    n_groups: int
 
 
 class Calculator(abc.ABC):
@@ -93,37 +144,93 @@ class Calculator(abc.ABC):
 
 
 class TrajectoryCalculator(Calculator):
-    """Adds trajectory loading + the dependency check to Calculator."""
+    """Adds trajectory streaming + dependency resolution to Calculator."""
 
     #: property this calculator streams (PropertyInfo)
     loaded_property = None
     #: memory cost model (same spec format as the reference)
     scale_function: dict = {"linear": {"scale_factor": 1}}
+    #: bytes one streamed slab may hold: the windowed kernels want many
+    #: moderate slabs, the JAX package's cap
+    MAX_SLAB_BYTES = 1 << 29
+
+    # ------------------------------------------------------- tau/window setup
+    def _handle_tau_values(self) -> np.ndarray:
+        """Normalise ``tau_values`` (int / list / slice) and return times.
+
+        Port of ``trajectory_calculator.py:196-228``; also sets
+        ``self.data_resolution`` and may adjust ``args['data_range']``.
+        """
+        tau = self.args.get("tau_values", None)
+        data_range = self.args["data_range"]
+        if isinstance(tau, dict) and "slice" in tau:
+            tau = slice(*tau["slice"])  # canonical encoded form
+        if isinstance(tau, int):
+            self.data_resolution = tau
+            tau = np.linspace(0, data_range - 1, tau, dtype=int)
+        elif isinstance(tau, (list, np.ndarray)):
+            tau = np.asarray(tau, dtype=int)
+            self.data_resolution = len(tau)
+            self.args["data_range"] = int(tau[-1] + 1)
+        elif tau is None or isinstance(tau, slice):
+            full = np.arange(data_range, dtype=int)
+            tau = full[tau] if isinstance(tau, slice) else full
+            self.data_resolution = len(tau)
+        else:
+            raise TypeError(f"Unsupported tau_values {tau!r}")
+        self.tau_values = tau
+        times = (
+            tau
+            * self.experiment.time_step
+            * self.experiment.sample_rate
+        )
+        return np.asarray(times, dtype=float)
+
+    @staticmethod
+    def encode_tau_values(tau) -> object:
+        """Canonical JSON-able form of ``tau_values`` (cache-key safe).
+
+        Accepts None / int (sub-sample count) / list / ndarray of lag
+        indices / slice. The encoded form round-trips through
+        :meth:`_handle_tau_values`.
+        """
+        if tau is None:
+            return None
+        if isinstance(tau, slice):
+            if tau == slice(None):
+                return None
+            return {"slice": [tau.start, tau.stop, tau.step]}
+        if isinstance(tau, (int, np.integer)):
+            return int(tau)
+        return [int(t) for t in tau]
 
     # ------------------------------------------------------------ dependencies
     def _run_dependency_check(self, species: Optional[List[str]] = None):
-        """Check that the loaded property covers every configuration.
-
-        The JAX package runs the transformation that produces a missing
-        property; transformations are not ported yet, so this raises.
-        """
+        """Run the transformation that produces a missing or incomplete
+        loaded property (port of ``trajectory_calculator.py:117-194``).
+        System properties (the fluxes) are a later slice."""
         if self.loaded_property is None:
             return
         prop = self.loaded_property.name
         exp = self.experiment
         for sp in species or self.args.get("species", []):
             path = join_path(sp, prop)
+            # present AND covering every configuration (appended data must
+            # re-trigger the producing transformation)
             if (
                 exp.store.check_existence(path)
                 and exp.store.get_cursor(path) >= exp.number_of_configurations
             ):
                 continue
-            raise NotImplementedError(
-                f"{self.name}: property {prop} is missing or incomplete for "
-                f"species {sp}, and the transformation that would derive it "
-                "is not ported yet (transformations are a later slice of the "
-                "PyTorch port); ingest Positions directly."
+            producer = transformation_for_property(
+                prop, experiment=exp, species=sp
             )
+            if producer is None:
+                raise ValueError(
+                    f"{self.name}: required property {prop} missing for "
+                    f"species {sp} and no transformation produces it."
+                )
+            producer.run_transformation(exp, [sp])
 
     # ---------------------------------------------------------- atom selection
     @staticmethod
@@ -205,7 +312,7 @@ class TrajectoryCalculator(Calculator):
         return pos
 
     # --------------------------------------------------------------- planning
-    def _plan_for(self, paths: List[str]) -> BatchPlan:
+    def _plan_for(self, paths: List[str], data_range: Optional[int] = None) -> BatchPlan:
         n_frames = self.experiment.number_of_configurations
         bytes_per_frame = 0
         for p in paths:
@@ -215,4 +322,161 @@ class TrajectoryCalculator(Calculator):
             n_frames=n_frames,
             bytes_per_frame=bytes_per_frame,
             scale_function=self.scale_function,
+            data_range=data_range,
         )
+
+    # --------------------------------------------------------------- streaming
+    def _window_slab_plan(
+        self, path: str, data_range: int, correlation_time: int,
+        max_slab_bytes: Optional[int] = None,
+    ) -> list:
+        """Window-aligned (start, stop) slabs covering every sliding window.
+
+        Consecutive slabs overlap by ``data_range - correlation_time`` frames
+        so every window (stride ``correlation_time``) is seen exactly once
+        across slab boundaries. ``max_slab_bytes`` additionally caps the slab
+        size (at a floor of two windows).
+        """
+        plan = self._plan_for([path], data_range=data_range)
+        slab = plan.frame_batch
+        if max_slab_bytes is not None:
+            _, n_atoms, n_dims = self.experiment.store.get_data_size(path)
+            per_frame = max(n_atoms * n_dims * 4, 1)
+            slab = max(min(slab, max_slab_bytes // per_frame), 2 * data_range)
+        return window_aligned_slabs(
+            plan.total_frames, slab, data_range, correlation_time
+        )
+
+    def _window_stream_plan(
+        self,
+        path: str,
+        data_range: int,
+        correlation_time: int,
+        max_slab_bytes: Optional[int] = None,
+        n_selected: Optional[int] = None,
+    ) -> tuple:
+        """``(slabs, n_groups)``: frame slabs plus an atom-axis split.
+
+        When one full-width ``data_range``-frame window fits the budget
+        (``plan.raw_frame_batch >= data_range``) this is
+        :meth:`_window_slab_plan` with ``n_groups = 1``. Otherwise the
+        reference's graceful degradation applies (``memory_manager.py:
+        257-340``): the (selected) atom axis is split into ``n_groups``
+        minibatches sized so one window of one group fits, and the frame
+        slabs are re-sized to the reduced width. ``n_selected`` is the
+        post-``atom_selection`` atom count.
+        """
+        plan = self._plan_for([path], data_range=data_range)
+        _, n_atoms, n_dims = self.experiment.store.get_data_size(path)
+        n_sel = int(n_atoms if n_selected is None else n_selected)
+        raw = plan.raw_frame_batch or plan.frame_batch
+        if raw >= data_range or n_sel <= 1:
+            return (
+                self._window_slab_plan(
+                    path, data_range, correlation_time,
+                    max_slab_bytes=max_slab_bytes,
+                ),
+                1,
+            )
+        planner = self.experiment.planner
+        bpaf = n_dims * 8  # bytes per atom-frame (f64 planning, as _plan_for)
+        m = planner.window_atoms_per_group(
+            n_sel, data_range, bpaf, self.scale_function
+        )
+        n_groups = -(-n_sel // m)
+        gplan = planner.plan(
+            n_frames=plan.total_frames,
+            bytes_per_frame=m * bpaf,
+            scale_function=self.scale_function,
+            data_range=data_range,
+        )
+        slab = gplan.frame_batch
+        if max_slab_bytes is not None:
+            per_frame = max(m * n_dims * 4, 1)
+            slab = max(min(slab, max_slab_bytes // per_frame), 2 * data_range)
+        log.info(
+            "%s %s: one %d-frame window of %d atoms exceeds the memory "
+            "budget; splitting the atom axis into %d minibatches of <= %d "
+            "atoms", self.name, path, data_range, n_sel, n_groups, m,
+        )
+        return (
+            window_aligned_slabs(
+                plan.total_frames, slab, data_range, correlation_time
+            ),
+            n_groups,
+        )
+
+    @staticmethod
+    def _atom_groups(sel, n_full: int, n_groups: int) -> list:
+        """Split a resolved atom selection into contiguous index groups.
+
+        ``n_groups == 1`` returns ``[sel]`` unchanged (None / slice / index
+        array: the store reads slices cheaper than fancy indices).
+        """
+        if n_groups <= 1:
+            return [sel]
+        if sel is None:
+            base = np.arange(n_full, dtype=np.int64)
+        elif isinstance(sel, slice):
+            base = np.arange(n_full, dtype=np.int64)[sel]
+        else:
+            base = np.asarray(sel, dtype=np.int64)
+        return list(np.array_split(base, n_groups))
+
+    def _stream_property(
+        self, species: str, prop_name: str, data_range: int,
+        correlation_time: int, with_info: bool = False,
+    ):
+        """Yield ``(T_slab, N, d)`` float32 tensors on ``config.device``.
+
+        The store read and host-to-device copy of slab k+1 overlap the
+        caller's device work on slab k (``prefetch_to_device``). Honors
+        ``args['atom_selection']``. Slabs are capped at ``MAX_SLAB_BYTES``.
+        When one ``data_range``-frame window of all (selected) atoms exceeds
+        the memory budget, the atom axis is split into contiguous minibatches
+        and the slab sequence repeats per group (outer loop atoms, inner loop
+        frames, the reference's ``atom_generator`` order). Windowed sums stay
+        additive across groups; consumers needing per-window reconstruction
+        pass ``with_info=True`` to receive ``(tensor, StreamSlabInfo)``.
+        """
+        path = join_path(species, prop_name)
+        atoms = self.resolve_atom_selection(
+            self.args.get("atom_selection"), species
+        )
+        store = self.experiment.store
+        _, n_full, _ = store.get_data_size(path)
+        if atoms is None:
+            n_sel = n_full
+        elif isinstance(atoms, slice):
+            n_sel = len(range(*atoms.indices(n_full)))
+        else:
+            n_sel = len(atoms)
+        slabs, n_groups = self._window_stream_plan(
+            path, data_range, correlation_time,
+            max_slab_bytes=self.MAX_SLAB_BYTES, n_selected=n_sel,
+        )
+        groups = self._atom_groups(atoms, n_full, n_groups)
+        for gi, g_atoms in enumerate(groups):
+
+            def load(slab, _a=g_atoms):
+                start, stop = slab
+                return store.load(
+                    [path], frames=slice(start, stop), atoms=_a,
+                    dtype=np.float32,
+                )[path]
+
+            inner = progress_iter(
+                prefetch_to_device(load, slabs),
+                desc=f"{self.name} {path}"
+                + (f" [atoms {gi + 1}/{n_groups}]" if n_groups > 1 else ""),
+                total=len(slabs), unit="slab",
+            )
+            for si, arr in enumerate(inner):
+                if with_info:
+                    yield arr, StreamSlabInfo(
+                        start=slabs[si][0], stop=slabs[si][1],
+                        slab_index=si, n_slabs=len(slabs),
+                        group=gi, n_groups=n_groups,
+                    )
+                else:
+                    yield arr

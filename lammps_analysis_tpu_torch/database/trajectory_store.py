@@ -126,18 +126,24 @@ class TrajectoryStore:
 
     def add_chunk(self, chunk: TrajectoryChunkData) -> None:
         """Append a chunk at each dataset's cursor (growing it if needed)."""
+        for sp in chunk.species_list:
+            for prop in sp.properties:
+                self.append(
+                    join_path(sp.name, prop.name), chunk.get_data(sp.name, prop.name)
+                )
+
+    def append(self, path: str, data: np.ndarray) -> None:
+        """Write ``(n_frames, n_particles, n_dims)`` frames at the dataset's
+        cursor (growing it if needed) and advance the cursor."""
         with self._lock:
-            for sp in chunk.species_list:
-                for prop in sp.properties:
-                    path = join_path(sp.name, prop.name)
-                    start = self.get_cursor(path)
-                    stop = start + chunk.chunk_size
-                    self._resize_to(path, stop)
-                    ds = self._open_for_write(path)
-                    ds[start:stop] = chunk.get_data(sp.name, prop.name)
-                    ds.flush()
-                    del ds
-                    self.set_cursor(path, stop)
+            start = self.get_cursor(path)
+            stop = start + len(data)
+            self._resize_to(path, stop)
+            ds = self._open_for_write(path)
+            ds[start:stop] = data
+            ds.flush()
+            del ds
+            self.set_cursor(path, stop)
 
     # ------------------------------------------------------------------- read
     def load(
@@ -169,6 +175,22 @@ class TrajectoryStore:
     # ------------------------------------------------------------- inspection
     def check_existence(self, path: str) -> bool:
         return self._file(path).exists()
+
+    def drop(self, path: str) -> bool:
+        """Delete a dataset and its cursor; True if it existed.
+
+        The JAX store's ``drop``: lets a user force a derived tensor such as
+        ``Unwrapped_Positions`` to be recomputed by the next calculator that
+        needs it, or reclaim its space."""
+        with self._lock:
+            f = self._file(path)
+            if not f.exists():
+                return False
+            f.unlink()
+            cursors = self._read_cursors()
+            cursors.pop(path, None)
+            self._write_cursors(cursors)
+            return True
 
     def get_data_size(self, path: str) -> tuple:
         """``(n_configurations, n_particles, n_dims)`` of a dataset."""

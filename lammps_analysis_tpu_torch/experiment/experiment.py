@@ -7,8 +7,9 @@ DB, whose schema is the JAX package's. All scalar metadata (temperature, time
 step, units, counts, box, species) are lazy SQL-backed attributes so
 re-opening a project restores everything.
 
-This slice ingests in-memory sources (``ScriptInput``); the file readers are
-the next slice.
+Sources: a LAMMPS dump path (``.lammpstrj``, ``.lammpstraj``, ``.dump``), a
+``FileProcessor`` (``LAMMPSDumpFile``, in-memory ``ScriptInput``), or a list
+of them. The JAX package's other readers are later slices.
 """
 
 from __future__ import annotations
@@ -30,6 +31,35 @@ from ..utils.constants import DatasetKeys
 from ..utils.units import UnitSystem, resolve_units
 
 log = logging.getLogger(__name__)
+
+#: suffixes the JAX package reads with a reader the port has not yet
+_LATER_READERS = {
+    ".extxyz": "EXTXYZFile", ".xyz": "EXTXYZFile", ".gro": "GROFile",
+    ".dcd": "DCDFile", ".trr": "TRRFile",
+}
+
+
+def _processor_for_path(path: Union[str, pathlib.Path]) -> FileProcessor:
+    """Choose a reader from the file suffix.
+
+    Reference analog: ``experiment/experiment.py:62-86``.
+    """
+    from ..file_io.lammps_dump import LAMMPSDumpFile
+
+    suffix = pathlib.Path(path).suffix.lower()
+    if suffix in (".lammpstraj", ".dump", ".lammpstrj"):
+        return LAMMPSDumpFile(path)
+    if suffix in _LATER_READERS:
+        raise NotImplementedError(
+            f"Cannot read {str(path)!r}: the {_LATER_READERS[suffix]} reader is "
+            "not ported yet (the other readers are a later slice of the "
+            "PyTorch port). Convert to a LAMMPS dump or ingest through "
+            "file_io.ScriptInput."
+        )
+    raise ValueError(
+        f"Cannot infer a reader for {str(path)!r} (suffix {suffix!r}). Pass a "
+        "FileProcessor instance (LAMMPSDumpFile, ScriptInput) instead."
+    )
 
 
 class _DBAttribute:
@@ -315,13 +345,8 @@ class Experiment:
         invalidated.
         """
         if isinstance(simulation_data, (str, pathlib.Path)):
-            raise NotImplementedError(
-                f"Cannot read {simulation_data!r}: the file readers are not "
-                "ported yet (the LAMMPS-dump reader is the first item of the "
-                "next slice of the PyTorch port). Ingest in memory through "
-                "file_io.ScriptInput."
-            )
-        if isinstance(simulation_data, FileProcessor):
+            processor = _processor_for_path(simulation_data)
+        elif isinstance(simulation_data, FileProcessor):
             processor = simulation_data
         elif isinstance(simulation_data, (list, tuple)):
             for item in simulation_data:
@@ -508,6 +533,13 @@ class Experiment:
         from .run import RunComputation
 
         return RunComputation(experiment=self)
+
+    def cls_transformation_run(self, transformation, species=None):
+        """Run a transformation instance on this experiment.
+
+        Reference analog: ``experiment.py:270-282``.
+        """
+        transformation.run_transformation(self, species=species)
 
     def __repr__(self):  # pragma: no cover - cosmetic
         return (

@@ -1,7 +1,9 @@
 """RunComputation: the ``exp.run.X(...)`` / ``project.run.X(...)`` hub.
 
 Counterpart of ``lammps_analysis_tpu/experiment/run.py`` over the port's
-calculator registry. Transformations are not ported yet.
+calculator and transformation registries: every ported calculator and
+transformation is an attribute; a transformation invoked through the hub
+runs on every bound experiment.
 """
 
 from __future__ import annotations
@@ -14,6 +16,12 @@ def _calculator_registry():
     from ..calculators import ALL_CALCULATORS
 
     return ALL_CALCULATORS
+
+
+def _transformation_registry():
+    from ..transformations.registry import ALL_TRANSFORMATIONS
+
+    return ALL_TRANSFORMATIONS
 
 
 class RunComputation:
@@ -32,11 +40,26 @@ class RunComputation:
                 experiment=self.experiment,
                 experiments=self.experiments,
             )
+        trafos = _transformation_registry()
+        if name in trafos:
+            cls = trafos[name]
+
+            def run_trafo(species=None, **kwargs):
+                trafo = cls(**kwargs)
+                for exp in self.experiments:
+                    exp.cls_transformation_run(trafo, species=species)
+
+            return run_trafo
         raise AttributeError(
-            f"No calculator named {name!r} in the PyTorch port. Ported: "
-            f"{sorted(calcs)}; the rest of the JAX package's calculators and "
-            "its transformations are later slices."
+            f"No calculator or transformation named {name!r} in the PyTorch "
+            f"port. Ported calculators: {sorted(calcs)}; transformations: "
+            f"{sorted(trafos)}. The JAX package's other calculators, its flux "
+            "transformations and MolecularMap are later slices."
         )
 
     def __dir__(self):
-        return sorted(set(super().__dir__()) | set(_calculator_registry()))
+        return sorted(
+            set(super().__dir__())
+            | set(_calculator_registry())
+            | set(_transformation_registry())
+        )

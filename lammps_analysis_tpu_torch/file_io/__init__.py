@@ -1,4 +1,7 @@
-"""Trajectory sources. This slice ingests in memory through ``ScriptInput``;
-the file readers of the JAX package are not ported yet."""
+"""Trajectory sources: the LAMMPS dump reader and in-memory ``ScriptInput``.
+
+The JAX package's other readers (extxyz, LAMMPS flux, gro, dcd, trr,
+chemfiles) are later slices of the port."""
 from .base import FileProcessor, assert_species_list_consistent  # noqa: F401
+from .lammps_dump import LAMMPSDumpFile  # noqa: F401
 from .script_input import ScriptInput  # noqa: F401

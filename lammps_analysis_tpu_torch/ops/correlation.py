@@ -1,0 +1,89 @@
+"""FFT-based windowed autocorrelation.
+
+Counterpart of ``windowed_acf_sum`` in
+``lammps_analysis_tpu/ops/correlation.py`` in torch ops on the tensor's device
+(``torch.fft``). The reference computes windowed autocorrelations with
+``tfp.stats.auto_correlation(..., center=False, normalize=False)`` per sliding
+window; ``acf = irfft(|rfft(x, 2T)|^2)[:T] / T`` is the same biased estimator
+(denominator ``T`` for every lag), batched over windows, particles and
+components.
+
+Precision: the forward FFTs run in the data's dtype (float32 from the store);
+the power spectra are summed over particles and components in float64 and
+inverted once per window in float64.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def _next_fast_len(n: int) -> int:
+    """Next power of two >= n."""
+    return 1 << (int(n - 1).bit_length())
+
+
+def _auto_chunk(n: int, d: int, window: int, budget_bytes: int) -> int:
+    """Windows per FFT batch that keep its working set in ``budget_bytes``.
+
+    A window's working set is the zero-padded batch plus its complex
+    spectrum and power: about ``N * D * fft_len * 16`` bytes. At most 32
+    windows a batch, as the JAX package.
+    """
+    fft_len = _next_fast_len(2 * window)
+    per_window = max(n * d * fft_len * 16, 1)
+    return max(1, min(32, int(budget_bytes) // per_window))
+
+
+def windowed_acf_sum(
+    x: torch.Tensor, window: int, stride: int, budget_bytes: int, tau=None
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Sum of per-window biased ACFs plus the per-window particle-mean ACFs.
+
+    Parameters
+    ----------
+    x : (T, N, D) time series (frames, particles, components).
+    window, stride : ensemble window length and correlation_time stride.
+    budget_bytes : memory the FFT batches may take: the experiment planner's
+        budget, which sizes the chunk of windows per batch (``_auto_chunk``).
+    tau : optional (R,) lag indices: each window is gathered at these
+        indices BEFORE the ACF (reference semantics,
+        ``green_kubo_ionic_conductivity.py:201``).
+
+    Returns
+    -------
+    acf_sum : (R,) float64: sum over windows and particles, summed over D,
+        of the per-window biased ACF; ``R = window`` when ``tau`` is None.
+    per_window : (n_windows, R) float64: per-window particle-MEAN ACF
+        summed over D, for the SEM of the running integral
+        (``green_kubo_self_diffusion_coefficients.py:199-206``).
+    """
+    total, n_particles, n_dims = x.shape
+    r = window if tau is None else len(tau)
+    n_windows = (total - window) // stride + 1 if total >= window else 0
+    if n_windows <= 0:
+        return (
+            torch.zeros(r, dtype=torch.float64, device=x.device),
+            torch.zeros((0, r), dtype=torch.float64, device=x.device),
+        )
+    chunk = _auto_chunk(n_particles, n_dims, r, budget_bytes)
+    fft_len = _next_fast_len(2 * r)
+    windows = x.unfold(0, window, stride)  # (n_windows, N, D, window): a view
+    tau_idx = (
+        None if tau is None
+        else torch.as_tensor(tau, dtype=torch.long, device=x.device)
+    )
+    acf_sum = torch.zeros(r, dtype=torch.float64, device=x.device)
+    per_window = []
+    for c0 in range(0, n_windows, chunk):
+        seg = windows[c0 : c0 + chunk]
+        if tau_idx is not None:
+            seg = seg.index_select(-1, tau_idx)
+        # irfft is linear: sum the power spectra over particles and
+        # components FIRST and invert once per window
+        f = torch.view_as_real(torch.fft.rfft(seg, n=fft_len, dim=-1))
+        power = torch.sum(f.square_(), dim=(1, 2, 4), dtype=torch.float64)
+        acf = torch.fft.irfft(power, n=fft_len, dim=-1)[:, :r] / r  # sum over N, D
+        acf_sum += acf.sum(0)
+        per_window.append(acf / n_particles)
+    return acf_sum, torch.cat(per_window)

@@ -12,6 +12,9 @@ into chunks, several frames a launch, edge counts and padding) must agree
 with ``adf_pairs_histogram_reference`` within the JAX package's ADF
 tolerance (totals rtol 1e-5; at most max(2, size // 64) bins outside rtol
 1e-4: its float64 atomics sum in another order), on the same tensors.
+The transport slice, which has no hand-written kernel, runs its Einstein and
+Green-Kubo calculators from a small dump on the card and on the CPU, which
+must agree within the transport tolerance (``tests/torch_dumps.py``).
 Marked ``cuda``; without a CUDA device every test skips. On a machine with a
 card: ``python -m pytest tests/test_torch_kernels_cuda.py -m cuda --noconftest``.
 """
@@ -286,3 +289,35 @@ def test_pairs_histogram_edge_counts(cuda, k_n):
     lists = [torch.from_numpy(np.ascontiguousarray(a)).to(cuda) for a in (*r, dist, sid_n)]
     args = (*lists, torch.from_numpy(counts).to(cuda), torch.from_numpy(sid_c).to(cuda), 500, 2, 4)
     _assert_adf_close(adf_kernel.adf_pairs_histogram(*args), adf_pairs_histogram_reference(*args))
+
+
+def test_transport_on_the_card_matches_the_cpu(cuda, tmp_path):
+    from lammps_analysis_tpu_torch import Project
+    from lammps_analysis_tpu_torch.utils.config import config
+    from torch_dumps import (
+        assert_einstein_close,
+        assert_gk_close,
+        random_walk,
+        walk_columns,
+        write_dump,
+    )
+
+    wrapped, _, vel, names = random_walk((30, 20), 60, 10.0, 0.3, 0.02, seed=4)
+    path = tmp_path / "t.lammpstrj"
+    write_dump(path, 10.0, walk_columns(wrapped, vel, names), every=10, shuffle_seed=4)
+    results = {}
+    old = config.device
+    try:
+        for device in ("cuda", "cpu"):
+            config.device = device
+            exp = Project(name=device, storage_path=tmp_path).add_experiment(
+                "e", timestep=0.002, units="metal", simulation_data=str(path)
+            )
+            results[device] = [
+                exp.run.EinsteinDiffusionCoefficients(data_range=15, plot=False).data_dict,
+                exp.run.GreenKuboDiffusionCoefficients(data_range=15, plot=False).data_dict,
+            ]
+    finally:
+        config.device = old
+    assert_einstein_close(results["cuda"][0], results["cpu"][0])
+    assert_gk_close(results["cuda"][1], results["cpu"][1])

@@ -44,6 +44,14 @@ def test_port_has_sources():
     assert len(SOURCES) > 20
     for kernel in ("rdf_histogram", "adf_neighbor_extract", "adf_neighbor_cells", "adf_pairs_histogram"):
         assert (PORT / "csrc" / f"{kernel}.cu").exists()
+    for package, modules in {
+        "file_io": ("native_parser", "tabular", "lammps_dump"),
+        "transformations": ("base", "coordinate_transforms", "registry"),
+        "ops": ("msd", "correlation"),
+        "calculators": ("einstein_diffusion_coefficients", "green_kubo_diffusion_coefficients"),
+    }.items():
+        for module in modules:
+            assert PORT / package / f"{module}.py" in SOURCES, (package, module)
 
 
 @pytest.mark.parametrize("path", SOURCES, ids=lambda p: str(p.relative_to(PORT)))

@@ -139,10 +139,10 @@ def test_port_rdf_cache_and_persistence(tmp_path):
 def test_port_refuses_missing_gpu_and_files(tmp_path):
     pos, n_na, n_cl, box, kw = _random_case()
     exp = _project("lammps_analysis_tpu_torch", tmp_path, pos, n_na, n_cl, box).experiments["e"]
-    with pytest.raises(NotImplementedError, match="LAMMPS-dump reader"):
-        exp.add_data(tmp_path / "traj.lammpstraj")
+    with pytest.raises(NotImplementedError, match="reader is not ported yet"):
+        exp.add_data(tmp_path / "traj.xyz")
     with pytest.raises(AttributeError, match="not .*ported|later slices"):
-        exp.run.EinsteinDiffusionCoefficients
+        exp.run.GreenKuboIonicConductivity
     if torch.cuda.is_available():
         return  # the default device is there: nothing to refuse
     config.device = "cuda"

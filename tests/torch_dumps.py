@@ -1,0 +1,198 @@
+"""Seeded LAMMPS dumps for the port's transport path, float64 direct sums
+of its series, and the comparison of two transport results.
+
+Numpy only, so that ``chip_smoke.py`` imports it as the tests do.
+
+``random_walk`` makes a wrapped random walk whose per-frame step is exactly
+the written velocity times the frame interval; ``write_dump`` writes any
+per-atom columns as a ``dump custom`` text file with numpy alone, atom rows
+shuffled per frame when asked. ``msd_sums_direct`` and ``acf_sums_direct``
+are plain float64 sums of the windowed MSD and the windowed biased ACF,
+lag by lag. The checks hold results to the port's transport tolerance:
+every Einstein output within rtol 1e-5; the GK ACF within rtol 1e-5 plus an
+atol of 1e-5 x acf[0] (float32 FFT rounding is relative to the largest
+term), its integrals, D and SEM within rtol 1e-5 plus an atol of 1e-5 x
+acf[0] x the longest lag time.
+"""
+
+import numpy as np
+
+#: the reference's species names, in the order of ``counts``
+SPECIES = ("Na", "Cl", "K", "F")
+
+
+def random_walk(counts, n_frames, box, sigma, dt_frame, seed):
+    """``(wrapped, unwrapped, velocities, names)`` of a random walk.
+
+    Velocities are drawn with sd ``sigma / dt_frame`` per axis and rounded to
+    the 6 decimals a dump keeps; ``unwrapped[t + 1] = unwrapped[t] + v[t] *
+    dt_frame`` from uniform starts in the box, so ``CoordinateUnwrapper``
+    recovers ``unwrapped`` and D is ``sigma**2 / (2 dt_frame)``.
+    """
+    rng = np.random.default_rng(seed)
+    n = sum(counts)
+    vel = np.round(rng.normal(scale=sigma / dt_frame, size=(n_frames, n, 3)), 6)
+    unwrapped = np.empty((n_frames, n, 3))
+    unwrapped[0] = rng.uniform(0.0, box, (n, 3))
+    np.cumsum(vel[:-1] * dt_frame, axis=0, out=unwrapped[1:])
+    unwrapped[1:] += unwrapped[0]
+    names = np.repeat(np.array(SPECIES[: len(counts)]), counts)
+    return np.mod(unwrapped, box), unwrapped, vel, names
+
+
+def walk_columns(wrapped, vel, names, with_id=True, label="element"):
+    """The ``id element x y z vx vy vz`` columns of a walk (``type`` ids
+    1, 2, ... with ``label="type"``)."""
+    n = wrapped.shape[1]
+    cols = {}
+    if with_id:
+        cols["id"] = np.arange(1, n + 1)
+    if label == "type":
+        cols["type"] = np.unique(names, return_inverse=True)[1] + 1
+    else:
+        cols["element"] = names
+    for i, axis in enumerate("xyz"):
+        cols[axis] = wrapped[:, :, i]
+    for i, axis in enumerate("xyz"):
+        cols[f"v{axis}"] = vel[:, :, i]
+    return cols
+
+
+def _digits(m, n):
+    """ASCII digits (..., n) uint8 of non-negative int64 ``m``, zero-padded."""
+    powers = 10 ** np.arange(n - 1, -1, -1, dtype=np.int64)
+    return (m[..., None] // powers % 10 + 48).astype(np.uint8)
+
+
+def _fixed6(v):
+    """Text (..., width) uint8 of floats ``v`` with 6 decimals: a sign (space
+    or minus), zero-padded integer digits, the point, the decimals."""
+    m = np.rint(np.abs(v) * 1e6).astype(np.int64)
+    int_digits = len(str(int(m.max(initial=0)) // 10**6))
+    sign = np.where(v < 0, ord("-"), ord(" ")).astype(np.uint8)[..., None]
+    point = np.full(v.shape + (1,), ord("."), np.uint8)
+    return np.concatenate(
+        [sign, _digits(m // 10**6, int_digits), point, _digits(m % 10**6, 6)], -1
+    )
+
+
+def _text(values):
+    """Text (..., width) uint8 of integers or strings, right-justified."""
+    strings = np.asarray(values).astype(str)
+    width = int(np.char.str_len(strings).max(initial=1))
+    padded = np.char.rjust(strings, width).astype(f"S{width}")
+    return np.frombuffer(padded.tobytes(), np.uint8).reshape(strings.shape + (width,))
+
+
+def write_dump(path, box, columns, every=1, shuffle_seed=None, first_step=0,
+               frames_per_block=50):
+    """Write ``columns`` (name -> (T, N) per-frame array, or (N,) per-atom
+    values repeated every frame) as a LAMMPS ``dump custom`` file.
+
+    Floats are written with 6 decimals, integers as integers. Each block of
+    frames is formatted as one uint8 array of fixed-width rows. With
+    ``shuffle_seed`` the atom rows of each frame come in a seeded order.
+    """
+    n_frames, n_atoms = next(v.shape[:2] for v in columns.values() if np.ndim(v) == 2)
+    rng = np.random.default_rng(shuffle_seed)
+    per_atom = {k: _text(v) for k, v in columns.items()
+                if np.ndim(v) == 1 and np.asarray(v).dtype.kind != "f"}
+    header = (
+        "ITEM: TIMESTEP\n{}\nITEM: NUMBER OF ATOMS\n" + f"{n_atoms}\n"
+        + "ITEM: BOX BOUNDS pp pp pp\n" + f"0.0 {box}\n" * 3
+        + "ITEM: ATOMS " + " ".join(columns) + "\n"
+    )
+    with open(path, "wb") as f:
+        for f0 in range(0, n_frames, frames_per_block):
+            f1 = min(f0 + frames_per_block, n_frames)
+            shape = (f1 - f0, n_atoms)
+            space = np.full(shape + (1,), ord(" "), np.uint8)
+            cols = []
+            for name, values in columns.items():
+                v = np.asarray(values)
+                if name in per_atom:
+                    text = per_atom[name]
+                else:
+                    v = v[f0:f1] if v.ndim == 2 else v
+                    text = _fixed6(v) if v.dtype.kind == "f" else _text(v)
+                cols += [space] if cols else []
+                cols.append(np.broadcast_to(text, shape + text.shape[-1:]))
+            cols.append(np.full(shape + (1,), ord("\n"), np.uint8))
+            rows = np.concatenate(cols, -1)
+            for i in range(f1 - f0):
+                order = rng.permutation(n_atoms) if shuffle_seed is not None else slice(None)
+                f.write(header.format(first_step + (f0 + i) * every).encode())
+                f.write(rows[i, order].tobytes())
+
+
+def msd_sums_direct(x, window, stride):
+    """``(window,)`` float64 sums over windows, atoms and axes of
+    ``(x[w + m] - x[w])**2``, one lag at a time from float64 copies of ``x``
+    (T, N, 3); windows start every ``stride`` frames and fit whole."""
+    x = np.asarray(x, np.float64)
+    n_windows = (len(x) - window) // stride + 1
+    origins = x[: (n_windows - 1) * stride + 1 : stride]
+    return np.array([
+        np.square(x[m : m + (n_windows - 1) * stride + 1 : stride] - origins).sum()
+        for m in range(window)
+    ])
+
+
+def acf_sums_direct(v, window, stride):
+    """``(window,)`` float64 sums over windows, atoms and axes of each
+    window's biased ACF ``(1/window) sum_t v[w + t] v[w + t + m]``.
+
+    Lag ``m`` sums diagonal ``m`` of the frames' float64 Gram matrix, each
+    product of frames ``t`` and ``t + m`` weighted by the number of windows
+    that hold both."""
+    v = np.asarray(v, np.float64).reshape(len(v), -1)
+    total = len(v)
+    n_windows = (total - window) // stride + 1
+    gram = v @ v.T
+    out = np.empty(window)
+    for m in range(window):
+        t = np.arange(total - m)
+        first = np.maximum(0, -(-(t + m - window + 1) // stride))
+        last = np.minimum(n_windows - 1, t // stride)
+        out[m] = np.dot(np.diagonal(gram, m), np.maximum(last - first + 1, 0)) / window
+    return out
+
+
+def assert_series_match_direct(einstein, gk, unwrapped, velocities, window, stride,
+                               length, time):
+    """Hold one species' Einstein MSD and GK ACF series (tau = every lag) to
+    the direct float64 sums of its stored arrays, divided by the reference's
+    ``n_windows * (n_atoms + 1)`` and converted with the experiment's
+    ``length`` and ``time`` units: MSD within rtol 1e-5, ACF within rtol 1e-5
+    plus 1e-5 x acf[0]. Returns the largest errors: ``msd`` relative,
+    ``acf`` over acf[0]."""
+    n_windows = (len(unwrapped) - window) // stride + 1
+    count = n_windows * (unwrapped.shape[1] + 1)
+    msd = msd_sums_direct(unwrapped, window, stride) / count * length**2
+    np.testing.assert_allclose(einstein["msd"], msd, rtol=1e-5, err_msg="msd")
+    acf = acf_sums_direct(velocities, window, stride) / count * length**2 / time**2
+    np.testing.assert_allclose(gk["acf"], acf, rtol=1e-5, atol=1e-5 * abs(acf[0]), err_msg="acf")
+    msd_err = np.abs(np.asarray(einstein["msd"]) - msd)
+    return {
+        "msd": float(np.max(msd_err[msd != 0] / np.abs(msd[msd != 0]), initial=0.0)),
+        "acf": float(np.max(np.abs(np.asarray(gk["acf"]) - acf)) / abs(acf[0])),
+    }
+
+
+def assert_einstein_close(ours, ref):
+    for sp in ref:
+        assert set(ours[sp]) == set(ref[sp])
+        for key, value in ref[sp].items():
+            np.testing.assert_allclose(ours[sp][key], value, rtol=1e-5, err_msg=f"{sp} {key}")
+
+
+def assert_gk_close(ours, ref):
+    for sp in ref:
+        acf0 = abs(ref[sp]["acf"][0])
+        t = np.asarray(ref[sp]["time"])
+        np.testing.assert_allclose(ours[sp]["time"], t, rtol=1e-12)
+        np.testing.assert_allclose(ours[sp]["acf"], ref[sp]["acf"], rtol=1e-5, atol=1e-5 * acf0)
+        for key in ("integral", "integral_uncertainty", "diffusion_coefficient", "uncertainty"):
+            np.testing.assert_allclose(
+                ours[sp][key], ref[sp][key], rtol=1e-5, atol=1e-5 * acf0 * t[-1], err_msg=key
+            )
