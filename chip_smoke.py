@@ -49,15 +49,38 @@ Phases, one line each (any failure raises and the exit code is not 0):
      tolerance), slabs and transformation on the card, FFT and reduction
      kernels in the trace, cache hits, and card == CPU on a small dump
      (parsed arrays identical, series within the transport tolerance);
+   * ``[3 post]`` the RDF post-processing (coordination numbers, potential
+     of mean force, Kirkwood-Buff integrals, structure factor) over the
+     ``[3 main]`` RDF that K1 computed (the ideal gas's coordination number
+     is rho 4/3 pi r^3) and over K1's RDF of a rock-salt lattice (first
+     shells of 6 and 12), equal on the card and the CPU;
+   * ``[3 flux]`` the conductivity path at full width: a LAMMPS dump of the
+     transport system with forces, per-atom energies and stresses (250
+     frames) -> charges from the experiment -> the six system calculators
+     that read a flux transformation, which the dependency check runs on
+     the card (the unwrap too); every ``Observables`` series against a
+     float64 numpy evaluation of its formula on the stored arrays, every
+     value against the float64 estimator on those series, Nernst-Einstein
+     over the ``[3 transport]`` Einstein and GK results against
+     e^2/(V kB T) sum q^2 N sigma^2/(2 dt), cache hits, card == CPU on a
+     small dump;
+   * ``[3 flux-file]`` a 10^6-row LAMMPS flux log of white-noise heat flux
+     and off-diagonal pressures -> ``LAMMPSFluxFile`` -> the GK thermal
+     conductivity and the flux-file viscosity, against the float64
+     estimator and the white-noise value;
 4. ``[4 profile]``: seven forced (not cached) calls of each main path on the
    warm process (median wall), then one under ``torch.profiler``: device
    time per kernel, the largest device consumers, and the share of the call
    the device is busy; for the transport path also a forced Einstein call
-   that re-runs the unwrap, the ingest wall and M window-frame-atoms/s.
+   that re-runs the unwrap, the ingest wall and M window-frame-atoms/s; for
+   the conductivity path each system calculator and each flux
+   transformation (re-run), and the flux log's parse rate.
 
 ``--walls`` runs only the forced-call medians (the transport path's too)
 and the angle kernel's one-frame launch, for an A/B of two checkouts on one
-card. ``--chunks`` times
+card. ``--acf-batches`` times the windowed ACF over a 10^6-row system
+series with 32-window FFT batches and with the default ones, in turns.
+``--chunks`` times
 the angle kernel at several chunk sizes (``adf_kernel.PAIRS_CHUNK``) on the
 one-frame launch, the mixed frame, K = 1076 and 16 main-path frames.
 
@@ -119,6 +142,30 @@ ADF_RANGE = 3.15  # radians, ops/adf.py::ADF_BIN_RANGE
 # steps of 0.002 ps (metal units), a random walk of 0.3 A a frame per axis
 TRANSPORT = dict(counts=[5120, 5120], box=40.0, n_frames=500, timestep=0.002,
                  every=10, sigma=0.3, data_range=200)
+# the conductivity path's dump: the transport system at full width, cut to
+# 250 frames, with seeded forces, per-atom energies and stresses, at 1200 K
+FLUX = dict(TRANSPORT, n_frames=250, data_range=100, temperature=1200.0)
+# a 10^6-step LAMMPS flux log (metal units, every 10 steps of 0.001 ps):
+# white-noise heat flux (sd 2 eV A/ps) and off-diagonal pressures (sd 500 bar)
+FLUX_FILE = dict(n_rows=1_000_000, sigma_flux=2.0, sigma_pressure=500.0, timestep=0.001,
+                 every=10, box=40.0, temperature=1200.0, data_range=200)
+# system calculator -> (the Observables series it reads, its ACF scale: 1, the
+# data_range, or None for an Einstein-Helfand MSD)
+SYSTEM = {
+    "GreenKuboIonicConductivity": ("Ionic_Current", 1),
+    "EinsteinHelfandIonicConductivity": ("Translational_Dipole_Moment", None),
+    "GreenKuboThermalConductivity": ("Thermal_Flux", "range"),
+    "EinsteinHelfandThermalConductivity": ("Integrated_Heat_Current", None),
+    "EinsteinHelfandThermalKinaci": ("Kinaci_Heat_Current", None),
+    "GreenKuboViscosity": ("Momentum_Flux", "range"),
+    "GreenKuboViscosityFlux": ("Stress_Visc", "range"),
+}
+FLUX_TRANSFORMATIONS = {
+    "IonicCurrent": "Ionic_Current", "TranslationalDipoleMoment": "Translational_Dipole_Moment",
+    "ThermalFlux": "Thermal_Flux", "IntegratedHeatCurrent": "Integrated_Heat_Current",
+    "KinaciIntegratedHeatCurrent": "Kinaci_Heat_Current", "MomentumFlux": "Momentum_Flux",
+}
+POST = ("CoordinationNumbers", "PotentialOfMeanForce", "KirkwoodBuffIntegral", "StructureFactor")
 
 
 def phase(name: str, message: str) -> None:
@@ -671,8 +718,9 @@ def profile_call(label: str, fn) -> dict:
     return dict(records=per_record, names=by_name, device_ms=busy / 1e3, busy=busy / wall_us)
 
 
-def ingest(root, counts, n_frames, box, seed):
-    """A port Project under ``root`` with experiment ``e`` of seeded Na/Cl."""
+def ingest(root, counts, n_frames, box, seed, pos=None):
+    """A port Project under ``root`` with experiment ``e`` of seeded Na/Cl
+    (uniform in the box, or the given (F, N, 3) positions, Na first)."""
     import lammps_analysis_tpu_torch as lt
     from lammps_analysis_tpu_torch.database import (
         PropertyInfo, SpeciesInfo, TrajectoryChunkData, TrajectoryMetadata,
@@ -681,8 +729,9 @@ def ingest(root, counts, n_frames, box, seed):
 
     prop = PropertyInfo("Positions", 3)
     species = [SpeciesInfo(name, n, [prop]) for name, n in zip(("Na", "Cl"), counts)]
-    rng = np.random.default_rng(seed)
-    pos = rng.uniform(0.0, box, (n_frames, sum(counts), 3)).astype(np.float32)
+    if pos is None:
+        rng = np.random.default_rng(seed)
+        pos = rng.uniform(0.0, box, (n_frames, sum(counts), 3)).astype(np.float32)
     meta = TrajectoryMetadata(
         n_configurations=n_frames, species_list=species, box_l=[box] * 3, sample_rate=1
     )
@@ -691,7 +740,8 @@ def ingest(root, counts, n_frames, box, seed):
     chunk.add_data(pos[:, counts[0]:], 0, "Cl", "Positions")
     project = lt.Project(name="smoke", storage_path=root)
     return project.add_experiment(
-        "e", timestep=0.002, units="metal", simulation_data=ScriptInput(chunk, meta, "seeded")
+        "e", timestep=0.002, temperature=1200.0, units="metal",
+        simulation_data=ScriptInput(chunk, meta, "seeded"),
     )
 
 
@@ -743,6 +793,23 @@ def main_path(card: str) -> tuple[int, dict]:
         forced_calls("RDF 64 frames x 10240 atoms, forced", forced)
         profiled = profile_call("RDF 64 frames x 10240 atoms, forced", forced)
 
+        # the post-processing over the RDF that K1 computed: the ideal gas's
+        # coordination number is rho 4/3 pi (r^3 - r0^3)
+        t0 = time.perf_counter()
+        post = post_process(exp, result)
+        post_s = time.perf_counter() - t0
+        volume_nm3 = exp.volume * exp.units.volume / 1e-27
+        worst = 0.0
+        for key in ("Na_Na", "Na_Cl", "Cl_Cl"):
+            r, cn = (np.asarray(post["CoordinationNumbers"][key][k]) for k in ("r", "cn"))
+            ideal = BENCH["counts"][0] / volume_nm3 * 4 / 3 * np.pi * (r[-1] ** 3 - r[0] ** 3)
+            worst = max(worst, abs(cn[-1] / ideal - 1))
+        if worst > 0.02:
+            raise RuntimeError(f"post: the ideal gas's coordination number is {worst:.3%} off rho 4/3 pi r^3")
+        phase("3 post", f"CN, POMF, KBI and S(q) over the [3 main] RDF (K1, 64 frames x 10240 atoms) "
+              f"in {post_s * 1e3:.1f} ms: every series finite, CN at 19.9 A within {worst:.3%} of the "
+              "ideal gas's rho 4/3 pi r^3 (2 % allowed)")
+
     # the same path on a small input, on the card and on the CPU
     small = dict(counts=[300, 200], n_frames=10, box=15.0)
     kw = dict(number_of_configurations=10, cutoff=7.4, number_of_bins=100, plot=False)
@@ -751,12 +818,80 @@ def main_path(card: str) -> tuple[int, dict]:
         config.device = device
         with tempfile.TemporaryDirectory() as root:
             exp = ingest(root, small["counts"], small["n_frames"], small["box"], seed=7)
-            outputs[device] = exp.run.RadialDistributionFunction(**kw).data_dict
+            rdf = exp.run.RadialDistributionFunction(**kw)
+            outputs[device] = rdf.data_dict, post_process(exp, rdf)
     config.device = "cuda"
-    if outputs["cuda"] != outputs["cpu"]:
+    if outputs["cuda"][0] != outputs["cpu"][0]:
         raise RuntimeError("main path: g(r) on the card differs from the CPU's plain path")
     phase("3 main", "small input (300 + 200 atoms, 10 frames): card and CPU g(r) identical")
+    if outputs["cuda"][1] != outputs["cpu"][1]:
+        raise RuntimeError("post: the post-processing of the card's RDF differs from the CPU's")
+    phase("3 post", "small input: CN, POMF, KBI and S(q) of the card's and the CPU's RDF identical")
+    post_lattice()
     return launches, profiled
+
+
+def post_process(exp, rdf) -> dict:
+    """The four RDF post-processing calculators over ``rdf``: their data
+    dicts, every value finite."""
+    out = {}
+    for name in POST:
+        out[name] = getattr(exp.run, name)(rdf_data=rdf, plot=False).data_dict
+        for subject, values in out[name].items():
+            for key, v in values.items():
+                if not np.all(np.isfinite(np.asarray(v, dtype=float))):
+                    raise RuntimeError(f"post: {name} {subject} {key} is not finite")
+    return out
+
+
+def rock_salt(cells, a, n_frames, jitter, seed):
+    """``(positions (F, 2 n, 3) float32, n)``: a rock-salt lattice of
+    ``cells``^3 cubic cells of edge ``a``, Na on the fcc sites and Cl
+    shifted by a/2, each atom jittered by a seeded Gaussian of sd
+    ``jitter`` per axis in every frame."""
+    fcc = np.array([[0, 0, 0], [0, 0.5, 0.5], [0.5, 0, 0.5], [0.5, 0.5, 0]])
+    grid = np.stack(np.meshgrid(*[np.arange(cells)] * 3, indexing="ij"), -1).reshape(-1, 1, 3)
+    na = ((grid + fcc) * a).reshape(-1, 3)
+    sites = np.concatenate([na, na + [a / 2, 0, 0]])
+    rng = np.random.default_rng(seed)
+    pos = sites + rng.normal(scale=jitter, size=(n_frames,) + sites.shape)
+    return np.mod(pos, cells * a).astype(np.float32), len(na)
+
+
+def post_lattice() -> None:
+    """K1's RDF of a rock-salt lattice (6^3 cells of 5.64 A, 0.1 A thermal
+    jitter, 8 frames) -> the post-processing finds the first shells: 6 Cl
+    around Na and 12 like ions; the card's results equal the CPU's."""
+    from lammps_analysis_tpu_torch import config
+    from lammps_analysis_tpu_torch.ops import rdf_kernel
+
+    cells, a, n_frames = 6, 5.64, 8
+    pos, n = rock_salt(cells, a, n_frames, 0.1, seed=2032)
+    kw = dict(number_of_configurations=n_frames, cutoff=8.0, number_of_bins=400, plot=False)
+    outputs = {}
+    for device in ("cuda", "cpu"):
+        config.device = device
+        with tempfile.TemporaryDirectory() as root:
+            exp = ingest(root, [n, n], n_frames, cells * a, seed=0, pos=pos)
+            before = rdf_kernel.launches
+            rdf = exp.run.RadialDistributionFunction(**kw)
+            outputs[device] = rdf.data_dict, post_process(exp, rdf), rdf_kernel.launches - before
+    config.device = "cuda"
+    if outputs["cuda"][2] < 1 or outputs["cpu"][2] != 0:
+        raise RuntimeError(f"post lattice: K1 launches card {outputs['cuda'][2]}, CPU {outputs['cpu'][2]}")
+    if outputs["cuda"][:2] != outputs["cpu"][:2]:
+        raise RuntimeError("post lattice: the card's RDF or post-processing differs from the CPU's")
+    cn = outputs["cuda"][1]["CoordinationNumbers"]
+    pomf = outputs["cuda"][1]["PotentialOfMeanForce"]
+    shells = {"Na_Na": 12, "Na_Cl": 6, "Cl_Cl": 12}
+    found = {k: cn[k].get("CN_1") for k in shells}
+    if any(v is None or abs(v / shells[k] - 1) > 0.02 for k, v in found.items()) or any(
+        "POMF_1" not in pomf[k] for k in shells
+    ):
+        raise RuntimeError(f"post lattice: first-shell coordination numbers {found}, expected {shells}")
+    phase("3 post", f"rock-salt lattice ({2 * n} atoms, {n_frames} frames, K1 on the card): first-shell "
+          "CN " + ", ".join(f"{k} {v:.4f}" for k, v in found.items()) + " (6 / 12 within 2 %), POMF_1 "
+          + ", ".join(f"{k} {pomf[k]['POMF_1']:.4g} eV" for k in shells) + "; card == CPU")
 
 
 def adf_main_path(card: str) -> tuple[dict, dict]:
@@ -873,14 +1008,15 @@ def transport_dump(root):
     return path, unwrapped, dt, size_mb
 
 
-def ingest_dump(root, path):
+def ingest_dump(root, path, temperature=None):
     """``(experiment, seconds)``: a Project under ``root`` ingesting ``path``."""
     import lammps_analysis_tpu_torch as lt
 
     project = lt.Project(name="transport", storage_path=root)
     t0 = time.perf_counter()
     exp = project.add_experiment(
-        "t", timestep=TRANSPORT["timestep"], units="metal", simulation_data=str(path)
+        "t", timestep=TRANSPORT["timestep"], temperature=temperature, units="metal",
+        simulation_data=str(path),
     )
     return exp, time.perf_counter() - t0
 
@@ -914,12 +1050,13 @@ class Spy:
 
     def __enter__(self):
         self.original = getattr(self.owner, self.attr)
+        self.own = self.attr in vars(self.owner)  # else inherited
 
         def spy(*args, **kwargs):
             with self._lock:
                 self.calls += 1
             for a in list(args) + list(kwargs.values()):
-                if isinstance(a, dict) and a:
+                while isinstance(a, dict) and a:  # a batch, or a batch of batches
                     a = next(iter(a.values()))
                 if isinstance(a, torch.Tensor):
                     self.devices.add(a.device.type)
@@ -937,7 +1074,10 @@ class Spy:
         return self
 
     def __exit__(self, *exc):
-        setattr(self.owner, self.attr, self.original)
+        if self.own:
+            setattr(self.owner, self.attr, self.original)
+        else:
+            delattr(self.owner, self.attr)
 
 
 def layer_spans(exp, einstein_with_unwrap, gk) -> None:
@@ -1147,7 +1287,283 @@ def transport_main_path(card: str) -> dict:
     torch_dumps.assert_gk_close(gk_card, gk_cpu)
     phase("3 transport", "small dump (300 + 200 atoms, 60 frames): parsed arrays identical, "
           "Einstein and GK on the card = CPU within the transport tolerance")
-    return dict(walls=walls, traces=traces, launches=launches)
+    return dict(walls=walls, traces=traces, launches=launches, einstein=einstein, gk=gk)
+
+
+def flux_dump(root, counts, n_frames, seed):
+    """``(path, MB)``: a walk of ``counts`` atoms in the transport box with
+    seeded forces, per-atom energies and stresses, as a LAMMPS dump."""
+    c = FLUX
+    wrapped, _, vel, names = torch_dumps.random_walk(
+        counts, n_frames, c["box"], c["sigma"], c["timestep"] * c["every"], seed=seed
+    )
+    cols = torch_dumps.walk_columns(wrapped, vel, names)
+    cols.update(torch_dumps.flux_columns(n_frames, sum(counts), seed=seed + 1))
+    path = pathlib.Path(root) / "nacl_flux.lammpstrj"
+    torch_dumps.write_dump(path, c["box"], cols, every=c["every"], shuffle_seed=seed + 2)
+    return path, path.stat().st_size / 1e6
+
+
+def system_value(result, name: str) -> float:
+    """The coefficient of a system calculator's ``data_dict["System"]``."""
+    from lammps_analysis_tpu_torch.calculators import ALL_CALCULATORS
+
+    return float(np.ravel(result["System"][ALL_CALCULATORS[name].result_keys[0]])[0])
+
+
+def system_estimate(exp, name: str, series, data_range: int) -> tuple[float, float]:
+    """``(value, prefactor)``: the system calculator's estimator evaluated in
+    float64 numpy (``tests/torch_dumps.py``) on a stored (T, 1, 3) series,
+    correlation_time 1, with the calculator's own prefactor."""
+    from lammps_analysis_tpu_torch.utils.fitting import fit_einstein_curve
+
+    calc = getattr(exp.run, name)
+    calc.args = calc.prepare_args(data_range=data_range, correlation_time=1)
+    prefactor = calc._prefactor()
+    times = np.arange(data_range) * exp.time_step * exp.sample_rate
+    scale = SYSTEM[name][1]
+    if scale is None:
+        msd = prefactor * torch_dumps.msd_system_direct(series, data_range, 1)
+        popt, *_ = fit_einstein_curve(times, msd, fit_max_index=data_range - 1)
+        return popt[0] / 6.0, prefactor
+    _, integral = torch_dumps.gk_system_direct(
+        series, data_range, 1, times, data_range if scale == "range" else 1.0
+    )
+    ir = min(calc.args["integration_range"] - 1, len(integral) - 1)
+    return prefactor * integral[ir], prefactor
+
+
+def flux_main_path(card: str, transport: dict) -> dict:
+    """``[3 flux]``: the conductivity path from a per-atom dump on the card."""
+    from lammps_analysis_tpu_torch import config
+    from lammps_analysis_tpu_torch.ops import correlation, msd
+    from lammps_analysis_tpu_torch.transformations import CoordinateUnwrapper, flux_transforms
+    from lammps_analysis_tpu_torch.utils.units import boltzmann_constant, elementary_charge
+
+    c = FLUX
+    n_na, n_cl = c["counts"]
+    n_atoms, data_range = n_na + n_cl, c["data_range"]
+    dt = c["timestep"] * c["every"]
+    calculators = [name for name in SYSTEM if name != "GreenKuboViscosityFlux"]
+    kw = dict(data_range=data_range, correlation_time=1, plot=False)
+    config.device = "cuda"
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.perf_counter()
+        path, size_mb = flux_dump(root, c["counts"], c["n_frames"], seed=2028)
+        write_s = time.perf_counter() - t0
+        exp, ingest_s = ingest_dump(root, path, temperature=c["temperature"])
+        exp.set_charge("Na", 1.0)
+        exp.set_charge("Cl", -1.0)
+        props = exp.store.properties_of("Na")
+        phase("3 flux", f"dump: {n_atoms} atoms x {c['n_frames']} frames, columns {props}, {size_mb:.1f} "
+              f"MB written in {write_s:.1f} s, ingested in {ingest_s:.3f} s ({size_mb / ingest_s:.1f} MB/s); "
+              "charges Na +1, Cl -1 from the experiment")
+
+        with contextlib.ExitStack() as stack:
+            trafos = {name: stack.enter_context(Spy(getattr(flux_transforms, name), "transform_batch",
+                                                     sync=True))
+                      for name in FLUX_TRANSFORMATIONS}
+            unwrap = stack.enter_context(Spy(CoordinateUnwrapper, "transform_batch"))
+            acf = stack.enter_context(Spy(correlation, "windowed_acf_sum"))
+            comb = stack.enter_context(Spy(msd, "windowed_msd_sum"))
+            t0 = time.perf_counter()
+            results = {name: getattr(exp.run, name)(**kw) for name in calculators}
+            first_s = time.perf_counter() - t0
+        spies = dict(trafos, CoordinateUnwrapper=unwrap, windowed_acf_sum=acf, windowed_msd_sum=comb)
+        if any(spy.calls < 1 or spy.devices != {"cuda"} for spy in spies.values()):
+            raise RuntimeError("flux: " + ", ".join(
+                f"{k} {v.calls} call(s) on {v.devices}" for k, v in spies.items()) + "; all must run on cuda")
+        phase("3 flux", f"six system calculators, first calls {first_s:.3f} s with their transformations: "
+              + ", ".join(f"{k} {v.calls} slab(s) {v.seconds * 1e3:.1f} ms" for k, v in trafos.items())
+              + f"; unwrap {unwrap.calls} slab(s); ACF {acf.calls} and MSD {comb.calls} call(s); every "
+              "call on cuda")
+
+        # every series against its formula in float64 on the stored arrays
+        names = ("Velocities", "Unwrapped_Positions", "Forces", "Stress", "Kinetic_Energy", "Potential_Energy")
+        arrays = {sp: {k: exp.store.load([f"{sp}/{k}"])[f"{sp}/{k}"] for k in names} for sp in ("Na", "Cl")}
+        direct = torch_dumps.flux_series_direct(arrays, {"Na": 1.0, "Cl": -1.0}, dt)
+        del arrays
+        series, errors = {}, {}
+        for prop in torch_dumps.FLUX_SERIES:
+            series[prop] = exp.store.load([f"Observables/{prop}"])[f"Observables/{prop}"]
+            stored, ref = series[prop][:, 0].astype(np.float64), direct[prop]
+            errors[prop] = float(np.abs(stored - ref).max() / np.abs(ref).max())
+            if series[prop].shape != (c["n_frames"], 1, 3) or not np.allclose(
+                stored, ref, rtol=1e-5, atol=1e-5 * np.abs(ref).max()
+            ):
+                raise RuntimeError(f"flux: {prop} {series[prop].shape} off its formula by {errors[prop]:.3e} "
+                                   "x max|J|")
+        phase("3 flux", "Observables series = float64 formulas on the stored arrays, max|diff| / max|J|: "
+              + ", ".join(f"{k} {v:.2e}" for k, v in errors.items()) + " (1e-5 allowed)")
+
+        # every value against its estimator in float64 on those series
+        worst = 0.0
+        for name in calculators:
+            value = system_value(results[name], name)
+            estimate, _ = system_estimate(exp, name, series[SYSTEM[name][0]], data_range)
+            rel = abs(value / estimate - 1)
+            worst = max(worst, rel)
+            phase("3 flux", f"{name}: {value:.6e} (float64 estimator {estimate:.6e}, rel. diff {rel:.2e})")
+            if rel > 1e-5:
+                raise RuntimeError(f"flux: {name} {value} is {rel:.3e} off the float64 estimator {estimate}")
+
+        # Nernst-Einstein over the [3 transport] diffusion coefficients (the
+        # same box, counts and charges): e^2/(V kB T) sum_i q_i^2 N_i D_i
+        d_walk = TRANSPORT["sigma"] ** 2 / (2 * TRANSPORT["timestep"] * TRANSPORT["every"]) * 1e-8
+        analytic = elementary_charge**2 * n_atoms * d_walk / (
+            (c["box"] * 1e-10) ** 3 * boltzmann_constant * c["temperature"]
+        )
+        ne = {}
+        for kind, bound in (("einstein", 0.03), ("gk", 0.05)):
+            res = exp.run.NernstEinsteinIonicConductivity(diffusion_data=transport[kind], plot=False)
+            ne[kind] = res["System"]["nernst_einstein_ionic_conductivity"]
+            rel = ne[kind] / analytic - 1
+            phase("3 flux", f"Nernst-Einstein over the [3 transport] {kind} D: {ne[kind]:.6e} S/m, analytic "
+                  f"{analytic:.6e} S/m ({100 * rel:+.2f} %, {100 * bound:.0f} % allowed)")
+            if abs(rel) > bound:
+                raise RuntimeError(f"flux: Nernst-Einstein ({kind}) {rel:+.3%} off the analytic value")
+        gk_ionic = system_value(results["GreenKuboIonicConductivity"], "GreenKuboIonicConductivity")
+        phase("3 flux", f"GK ionic conductivity / Nernst-Einstein (Einstein D): {gk_ionic / ne['einstein']:.4f} "
+              f"(no bound: {c['n_frames']} frames do not pin a collective value)")
+
+        with contextlib.ExitStack() as stack:
+            spies = [stack.enter_context(Spy(getattr(flux_transforms, name), "transform_batch"))
+                     for name in FLUX_TRANSFORMATIONS]
+            spies += [stack.enter_context(Spy(correlation, "windowed_acf_sum")),
+                      stack.enter_context(Spy(msd, "windowed_msd_sum"))]
+            again = {name: getattr(exp.run, name)(**kw) for name in calculators}
+        if any(spy.calls for spy in spies) or any(again[k].data_dict != results[k].data_dict for k in again):
+            raise RuntimeError("flux: the second calls were not cache hits")
+        phase("3 flux", "second calls: cache hits, no transformation, ACF or MSD slab")
+
+        size = f"{c['n_frames']} frames x {n_atoms} atoms, range {data_range}"
+        walls, traces = {}, {}
+        for name in calculators:
+            def forced(name=name):
+                return getattr(exp.run, name)(force=True, **kw)
+
+            walls[name] = forced_calls(f"{name} {size}, forced", forced)
+            traces[name] = profile_call(f"{name} {size}, forced", forced)
+        for name, prop in FLUX_TRANSFORMATIONS.items():
+            def rerun(name=name, prop=prop):
+                exp.store.drop(f"Observables/{prop}")
+                getattr(exp.run, name)()
+
+            walls[name] = forced_calls(f"{name} {size}, re-run", rerun)
+            traces[name] = profile_call(f"{name} {size}, re-run", rerun)
+
+    # the same path from a small dump, on the card and on the CPU
+    outputs = {}
+    for device in ("cuda", "cpu"):
+        config.device = device
+        with tempfile.TemporaryDirectory() as root:
+            path, _ = flux_dump(root, [300, 200], 20, seed=2033)
+            small, _ = ingest_dump(root, path, temperature=c["temperature"])
+            small.set_charge("Na", 1.0)
+            small.set_charge("Cl", -1.0)
+            results = {name: getattr(small.run, name)(data_range=10, plot=False).data_dict["System"]
+                       for name in calculators}
+            outputs[device] = results, {
+                p: small.store.load([f"Observables/{p}"])[f"Observables/{p}"] for p in torch_dumps.FLUX_SERIES
+            }
+    config.device = "cuda"
+    for prop, ref in outputs["cpu"][1].items():
+        ref = ref.astype(np.float64)
+        if not np.allclose(outputs["cuda"][1][prop], ref, rtol=1e-5, atol=1e-5 * np.abs(ref).max()):
+            raise RuntimeError(f"flux: {prop} on the card differs from the CPU's")
+    for name, ref in outputs["cpu"][0].items():
+        torch_dumps.assert_system_close(outputs["cuda"][0][name], ref)
+    phase("3 flux", "small dump (300 + 200 atoms, 20 frames): the six series and six calculators on the "
+          "card = CPU within the transport tolerance")
+    return dict(walls=walls, traces=traces)
+
+
+def flux_file_path(card: str) -> dict:
+    """``[3 flux-file]``: a 10^6-row LAMMPS flux log -> the GK thermal
+    conductivity and the flux-file viscosity on the card."""
+    import lammps_analysis_tpu_torch as lt
+    from lammps_analysis_tpu_torch import config
+    from lammps_analysis_tpu_torch.file_io import LAMMPSFluxFile
+    from lammps_analysis_tpu_torch.ops import correlation
+
+    c = FLUX_FILE
+    n, data_range = c["n_rows"], c["data_range"]
+    calculators = ("GreenKuboThermalConductivity", "GreenKuboViscosityFlux")
+    sigma = {"Thermal_Flux": c["sigma_flux"], "Stress_Visc": c["sigma_pressure"]}
+    kw = dict(data_range=data_range, correlation_time=1, plot=False)
+    config.device = "cuda"
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.perf_counter()
+        rng = np.random.default_rng(2034)
+        flux = rng.normal(scale=c["sigma_flux"], size=(n, 3))
+        pressure = rng.normal(scale=c["sigma_pressure"], size=(n, 3))
+        path = pathlib.Path(root) / "flux.log"
+        torch_dumps.write_flux_file(path, {
+            "time": np.arange(n) * c["every"], "temp": c["temperature"] + rng.normal(scale=20.0, size=n),
+            **{f"c_flux_thermal[{i + 1}]": flux[:, i] for i in range(3)},
+            **{name: pressure[:, i] for i, name in enumerate(("pxy", "pxz", "pyz"))},
+        })
+        del flux, pressure
+        size_mb = path.stat().st_size / 1e6
+        write_s = time.perf_counter() - t0
+
+        def reader():
+            return LAMMPSFluxFile(path, sample_rate=c["every"], box_l=[c["box"]] * 3)
+
+        t0 = time.perf_counter()
+        n_parsed = sum(chunk.chunk_size for chunk in reader().get_configurations_generator())
+        parse_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        exp = lt.Project(name="flux", storage_path=root).add_experiment(
+            "log", timestep=c["timestep"], temperature=c["temperature"], units="metal",
+            simulation_data=reader(),
+        )
+        ingest_s = time.perf_counter() - t0
+        species = {k: v.n_particles for k, v in exp.species.items()}
+        if n_parsed != n or exp.number_of_configurations != n or species != {"Observables": 1}:
+            raise RuntimeError(f"flux-file: {n_parsed} rows parsed, {exp.number_of_configurations} "
+                               f"configurations, species {species}")
+        phase("3 flux-file", f"flux log: {n} rows, {size_mb:.1f} MB written in {write_s:.1f} s; parse "
+              f"{size_mb / parse_s:.1f} MB/s ({parse_s:.3f} s, reader alone), ingest {ingest_s:.3f} s "
+              f"({size_mb / ingest_s:.1f} MB/s); Observables {exp.store.properties_of('Observables')}")
+
+        results = {}
+        with Spy(correlation, "windowed_acf_sum", sync=True) as acf:
+            for name in calculators:
+                t0 = time.perf_counter()
+                results[name] = getattr(exp.run, name)(**kw)
+                phase("3 flux-file", f"{name} first call {time.perf_counter() - t0:.3f} s")
+        if acf.calls < 2 or acf.devices != {"cuda"}:
+            raise RuntimeError(f"flux-file: {acf.calls} ACF call(s) on {acf.devices}")
+        dt = c["timestep"] * c["every"]
+        for name in calculators:
+            prop = SYSTEM[name][0]
+            series = exp.store.load([f"Observables/{prop}"])[f"Observables/{prop}"]
+            value = system_value(results[name], name)
+            t0 = time.perf_counter()
+            estimate, prefactor = system_estimate(exp, name, series, data_range)
+            # white noise of sd s per axis: only lag 0 of the data_range-scaled
+            # ACF survives, 3 s^2 data_range, over half a frame interval
+            analytic = prefactor * data_range * 3 * sigma[prop] ** 2 * dt / 2
+            rel, off = abs(value / estimate - 1), value / analytic - 1
+            phase("3 flux-file", f"{name}: {value:.6e} (float64 estimator {estimate:.6e} in "
+                  f"{time.perf_counter() - t0:.1f} s, rel. diff {rel:.2e}; white-noise value "
+                  f"{analytic:.6e}, {100 * off:+.2f} %, 8 % allowed)")
+            if rel > 1e-5 or abs(off) > 0.08:
+                raise RuntimeError(f"flux-file: {name} {value} against estimator {estimate} and white noise "
+                                   f"{analytic}")
+
+        walls, traces = {}, {}
+        for name in calculators:
+            def forced(name=name):
+                return getattr(exp.run, name)(force=True, **kw)
+
+            label = f"{name} {n} rows, range {data_range}, forced"
+            walls[name] = forced_calls(label, forced)
+            traces[name] = profile_call(label, forced)
+        phase("4 profile", f"flux log parse {size_mb / parse_s:.1f} MB/s ({n / parse_s / 1e6:.3f} M rows/s, "
+              f"reader alone)")
+    return dict(walls=walls, traces=traces)
 
 
 
@@ -1228,6 +1644,39 @@ def chunk_sweep() -> None:
         adf_kernel.PAIRS_CHUNK = chosen
 
 
+def acf_batches() -> None:
+    """``--acf-batches``: ``windowed_acf_sum`` over the ``[3 flux-file]``
+    series shape (10^6 x 1 x 3, range 200, stride 1) with 32-window FFT
+    batches (``BATCH_BYTES`` = 0) and with the default batches, in turns
+    (32, default, default, 32): wall per call after a synchronise, and the
+    number of batches."""
+    from lammps_analysis_tpu_torch.ops import correlation
+
+    c = FLUX_FILE
+    x = torch.randn(c["n_rows"], 1, 3, device="cuda", generator=torch.Generator("cuda").manual_seed(2035))
+    budget = int(torch.cuda.mem_get_info()[1] * 0.6)
+    default = correlation.BATCH_BYTES
+    results = []
+    try:
+        for batch_bytes in (0, default, default, 0):
+            correlation.BATCH_BYTES = batch_bytes
+            chunk = correlation._auto_chunk(1, 3, c["data_range"], budget)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            s, _ = correlation.windowed_acf_sum(x, c["data_range"], 1, budget)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            results.append(s)
+            n_batches = -(-(c["n_rows"] - c["data_range"] + 1) // chunk)
+            phase("4 profile", f"windowed_acf_sum 10^6 x 1 x 3, range {c['data_range']}: {chunk} windows a "
+                  f"batch ({n_batches} batches), {ms:.3f} ms")
+    finally:
+        correlation.BATCH_BYTES = default
+    scale = float(results[0][0].abs())
+    if any(not torch.allclose(r, results[0], rtol=1e-9, atol=1e-9 * scale) for r in results):
+        raise RuntimeError("acf batches: the batch size changed the result")
+
+
 def walls() -> None:
     """``--walls``: only the forced-call medians of the main paths (RDF, ADF,
     Einstein, Green-Kubo) and the angle kernel's one-frame launch, for an A/B of two checkouts on one card
@@ -1269,13 +1718,19 @@ def main() -> int:
         environment()
         chunk_sweep()
         return 0
+    if sys.argv[1:] == ["--acf-batches"]:
+        environment()
+        acf_batches()
+        return 0
     card = environment()
     build()
     rdf = kernel_vs_plain()
     adf = adf_kernels_vs_plain()
     rdf_launches, _ = main_path(card)
     adf_launches, _ = adf_main_path(card)
-    transport_main_path(card)
+    transport = transport_main_path(card)
+    flux_main_path(card, transport)
+    flux_file_path(card)
 
     def cases(prefix):
         return [v for k, v in adf.items() if k.startswith(prefix)]

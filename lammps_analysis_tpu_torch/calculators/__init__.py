@@ -1,14 +1,33 @@
 """Calculators: observables computed from stored trajectories.
 
-The port carries the radial and angular distribution functions and the
-Einstein and Green-Kubo self-diffusion coefficients so far; the JAX
+The port carries the radial and angular distribution functions, the RDF
+post-processing (coordination numbers, potential of mean force,
+Kirkwood-Buff integrals, structure factor), the Einstein and Green-Kubo
+self-diffusion coefficients, Nernst-Einstein, and the seven system
+(conductivity, thermal conductivity, viscosity) calculators; the JAX
 package's other calculators are later slices (see ROADMAP.md).
 """
 from .angular_distribution_function import AngularDistributionFunction  # noqa: F401
 from .base import Calculator, TrajectoryCalculator  # noqa: F401
 from .einstein_diffusion_coefficients import EinsteinDiffusionCoefficients  # noqa: F401
 from .green_kubo_diffusion_coefficients import GreenKuboDiffusionCoefficients  # noqa: F401
+from .post_processing import (  # noqa: F401
+    CoordinationNumbers,
+    KirkwoodBuffIntegral,
+    NernstEinsteinIonicConductivity,
+    PotentialOfMeanForce,
+    StructureFactor,
+)
 from .radial_distribution_function import RadialDistributionFunction  # noqa: F401
+from .system_calculators import (  # noqa: F401
+    EinsteinHelfandIonicConductivity,
+    EinsteinHelfandThermalConductivity,
+    EinsteinHelfandThermalKinaci,
+    GreenKuboIonicConductivity,
+    GreenKuboThermalConductivity,
+    GreenKuboViscosity,
+    GreenKuboViscosityFlux,
+)
 
 ALL_CALCULATORS = {
     cls.__name__: cls
@@ -17,5 +36,17 @@ ALL_CALCULATORS = {
         AngularDistributionFunction,
         EinsteinDiffusionCoefficients,
         GreenKuboDiffusionCoefficients,
+        CoordinationNumbers,
+        PotentialOfMeanForce,
+        KirkwoodBuffIntegral,
+        StructureFactor,
+        NernstEinsteinIonicConductivity,
+        GreenKuboIonicConductivity,
+        EinsteinHelfandIonicConductivity,
+        GreenKuboThermalConductivity,
+        EinsteinHelfandThermalConductivity,
+        EinsteinHelfandThermalKinaci,
+        GreenKuboViscosity,
+        GreenKuboViscosityFlux,
     )
 }

@@ -9,12 +9,14 @@ result series; the return value is a :class:`Computation` (or
 
 ``TrajectoryCalculator`` carries atom selections, the concatenated-positions
 loader of the structural calculators, the dependency check that runs the
-transformation producing a missing property, and the windowed stream of the
-correlation calculators: window-aligned frame slabs, split along the atom
-axis when one window of all atoms exceeds the memory budget, loaded in
-float32 and copied to ``config.device`` one slab ahead. The JAX package's
-fused unwrap stream (``config.fuse_streaming``) and multi-species stream are
-later slices. Plotting is not ported yet.
+transformation producing a missing property (per species, or the system
+series under ``Observables`` for ``system_property`` calculators), and the
+windowed stream of the correlation calculators: window-aligned frame slabs,
+split along the atom axis when one window of all atoms exceeds the memory
+budget, loaded in float32 and copied to ``config.device`` one slab ahead. A
+system series streams as ``Observables/<property>`` with one particle. The
+JAX package's fused unwrap stream (``config.fuse_streaming``) and
+multi-species stream are later slices. Plotting is not ported yet.
 """
 
 from __future__ import annotations
@@ -31,6 +33,7 @@ from ..database.trajectory_store import join_path
 from ..memory.planner import BatchPlan
 from ..pipeline.prefetch import prefetch_to_device
 from ..transformations.registry import transformation_for_property
+from ..utils.constants import DatasetKeys
 from ..utils.progress import progress_iter
 
 log = logging.getLogger(__name__)
@@ -148,6 +151,8 @@ class TrajectoryCalculator(Calculator):
 
     #: property this calculator streams (PropertyInfo)
     loaded_property = None
+    #: True -> ``loaded_property`` is a system series under ``Observables``
+    system_property = False
     #: memory cost model (same spec format as the reference)
     scale_function: dict = {"linear": {"scale_factor": 1}}
     #: bytes one streamed slab may hold: the windowed kernels want many
@@ -207,20 +212,35 @@ class TrajectoryCalculator(Calculator):
     # ------------------------------------------------------------ dependencies
     def _run_dependency_check(self, species: Optional[List[str]] = None):
         """Run the transformation that produces a missing or incomplete
-        loaded property (port of ``trajectory_calculator.py:117-194``).
-        System properties (the fluxes) are a later slice."""
+        loaded property (port of ``trajectory_calculator.py:117-194``): per
+        species, or once for a system series (JAX package
+        ``calculators/base.py:240-251``)."""
         if self.loaded_property is None:
             return
         prop = self.loaded_property.name
         exp = self.experiment
-        for sp in species or self.args.get("species", []):
-            path = join_path(sp, prop)
+
+        def complete(path):
             # present AND covering every configuration (appended data must
             # re-trigger the producing transformation)
-            if (
+            return (
                 exp.store.check_existence(path)
                 and exp.store.get_cursor(path) >= exp.number_of_configurations
-            ):
+            )
+
+        if self.system_property:
+            if complete(join_path(DatasetKeys.OBSERVABLES, prop)):
+                return
+            producer = transformation_for_property(prop)
+            if producer is None:
+                raise ValueError(
+                    f"{self.name}: required property {prop} not in store and "
+                    "no transformation produces it."
+                )
+            producer.run_transformation(exp)
+            return
+        for sp in species or self.args.get("species", []):
+            if complete(join_path(sp, prop)):
                 continue
             producer = transformation_for_property(
                 prop, experiment=exp, species=sp

@@ -8,8 +8,9 @@ step, units, counts, box, species) are lazy SQL-backed attributes so
 re-opening a project restores everything.
 
 Sources: a LAMMPS dump path (``.lammpstrj``, ``.lammpstraj``, ``.dump``), a
-``FileProcessor`` (``LAMMPSDumpFile``, in-memory ``ScriptInput``), or a list
-of them. The JAX package's other readers are later slices.
+``FileProcessor`` (``LAMMPSDumpFile``, ``LAMMPSFluxFile``, in-memory
+``ScriptInput``), or a list of them. The JAX package's other readers are
+later slices.
 """
 
 from __future__ import annotations
@@ -52,13 +53,14 @@ def _processor_for_path(path: Union[str, pathlib.Path]) -> FileProcessor:
     if suffix in _LATER_READERS:
         raise NotImplementedError(
             f"Cannot read {str(path)!r}: the {_LATER_READERS[suffix]} reader is "
-            "not ported yet (the other readers are a later slice of the "
-            "PyTorch port). Convert to a LAMMPS dump or ingest through "
+            "not ported yet (a later slice of the PyTorch port, ROADMAP.md "
+            "Queue 1 item 2). Convert to a LAMMPS dump or ingest through "
             "file_io.ScriptInput."
         )
     raise ValueError(
         f"Cannot infer a reader for {str(path)!r} (suffix {suffix!r}). Pass a "
-        "FileProcessor instance (LAMMPSDumpFile, ScriptInput) instead."
+        "FileProcessor instance (LAMMPSDumpFile, LAMMPSFluxFile, ScriptInput) "
+        "instead."
     )
 
 

@@ -23,16 +23,24 @@ def _next_fast_len(n: int) -> int:
     return 1 << (int(n - 1).bit_length())
 
 
+#: a batch may hold more than 32 windows while it stays under this size
+BATCH_BYTES = 1 << 28
+
+
 def _auto_chunk(n: int, d: int, window: int, budget_bytes: int) -> int:
     """Windows per FFT batch that keep its working set in ``budget_bytes``.
 
     A window's working set is the zero-padded batch plus its complex
-    spectrum and power: about ``N * D * fft_len * 16`` bytes. At most 32
-    windows a batch, as the JAX package.
+    spectrum and power: about ``N * D * fft_len * 16`` bytes. A batch holds
+    32 windows (the JAX package's step), or more while it stays under
+    ``BATCH_BYTES``: each batch is the same short sequence of launches
+    whatever its size, so a one-particle system series (a 10^6-row flux
+    log) runs in tens of batches instead of tens of thousands; per-atom
+    series keep 32. Never more than the budget holds, never fewer than 1.
     """
     fft_len = _next_fast_len(2 * window)
     per_window = max(n * d * fft_len * 16, 1)
-    return max(1, min(32, int(budget_bytes) // per_window))
+    return max(1, min(int(budget_bytes) // per_window, max(32, BATCH_BYTES // per_window)))
 
 
 def windowed_acf_sum(

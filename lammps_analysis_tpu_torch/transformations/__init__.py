@@ -1,7 +1,7 @@
 """Transformations: derived per-frame tensors written back to the store.
 
-The port carries the coordinate transformations; the JAX package's flux
-transformations and ``MolecularMap`` are a later slice (see ROADMAP.md).
+The port carries the coordinate and flux transformations; the JAX
+package's ``MolecularMap`` is a later slice (ROADMAP.md, Queue 1 item 5).
 """
 from .base import Transformation  # noqa: F401
 from .coordinate_transforms import (  # noqa: F401
@@ -10,6 +10,14 @@ from .coordinate_transforms import (  # noqa: F401
     ScaleCoordinates,
     UnwrapViaIndices,
     VelocityFromPositions,
+)
+from .flux_transforms import (  # noqa: F401
+    IntegratedHeatCurrent,
+    IonicCurrent,
+    KinaciIntegratedHeatCurrent,
+    MomentumFlux,
+    ThermalFlux,
+    TranslationalDipoleMoment,
 )
 from .registry import (  # noqa: F401
     ALL_TRANSFORMATIONS,

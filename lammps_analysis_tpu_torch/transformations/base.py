@@ -15,10 +15,18 @@ re-design of ``mdsuite/transformations/transformations.py:66-619``):
   dataset's cursor, so an append to the experiment extends the output from
   where it stopped (``bootstrap_carry`` rebuilds the carry there).
 
+Single-species transformations run once per species and write
+``<species>/<output>``; multi-species ones (the fluxes,
+``flux_transforms.py``) consume every species' inputs in one batch
+``{species: {property: tensor}}`` and write one system series ``(T, 1, d)``
+under ``Observables/<output>`` (``bootstrap_carry_multi`` rebuilds their
+carry after an append).
+
 The JAX package jit-compiles ``transform_batch`` and routes slabs to the host
 when the accelerator link is slow; here it runs as eager torch ops on
-``config.device``, on the store's dtype (float32). Multi-species
-transformations (the fluxes) are a later slice.
+``config.device``. Single-species inputs arrive in the store's dtype
+(float32); multi-species inputs keep their own dtype (float32 store data,
+float64 metadata constants), and the fluxes sum in float64.
 """
 
 from __future__ import annotations
@@ -34,7 +42,11 @@ import torch
 from ..database.properties import PropertyInfo
 from ..database.trajectory_store import join_path
 from ..utils.config import get_device
-from ..utils.constants import CannotFindPropertyError
+from ..utils.constants import (
+    CannotFindPropertyError,
+    DatasetKeys,
+    SpeciesNotFoundError,
+)
 from ..utils.progress import progress_iter
 
 log = logging.getLogger(__name__)
@@ -49,6 +61,8 @@ class Transformation(abc.ABC):
     output_property: PropertyInfo = None
     #: memory cost model spec (same format as the reference)
     scale_function: dict = {"linear": {"scale_factor": 1}}
+    #: True -> consume every species, emit one system-wide series
+    multi_species: bool = False
     #: stateful transformations need sequential batches (carryover)
     requires_carryover: bool = False
 
@@ -58,11 +72,14 @@ class Transformation(abc.ABC):
     ) -> Tuple[torch.Tensor, Any]:
         """Property tensors -> output tensor (+ new carry).
 
-        ``batch`` maps property name -> ``(T, N, d)``; constants broadcast.
-        Output is ``(T, N, d_out)`` on the inputs' device. A transformation
-        with ``requires_carryover`` also defines ``bootstrap_carry(experiment,
-        species, offset)``, which rebuilds the carry at ``offset`` when an
-        append resumes it.
+        Single-species: ``batch`` maps property name -> ``(T, N, d)``;
+        constants broadcast; output is ``(T, N, d_out)`` on the inputs'
+        device. Multi-species: ``batch`` is ``{species: {property:
+        tensor}}`` and the output ``(T, d_out)``. A transformation with
+        ``requires_carryover`` also defines ``bootstrap_carry(experiment,
+        species, offset)`` (or ``bootstrap_carry_multi(experiment,
+        species_list, offset)``), which rebuilds the carry at ``offset`` when
+        an append resumes it.
         """
 
     # ------------------------------------------------------------------ runner
@@ -70,8 +87,12 @@ class Transformation(abc.ABC):
         """Execute against an experiment, writing results into its store.
 
         Reference analog: ``SingleSpeciesTrafo.run_transformation``
-        (``transformations.py:446-519``).
+        (``transformations.py:446-519``) / ``MultiSpeciesTrafo`` (:553).
         """
+        if self.multi_species:
+            self._run_multi(experiment, species or list(experiment.species))
+            experiment.refresh_property_groups()
+            return
         for sp_name in species or list(experiment.species):
             out_path = join_path(sp_name, self.output_property.name)
             if (
@@ -119,16 +140,67 @@ class Transformation(abc.ABC):
             out, carry = self.transform_batch(tensors, carry)
             store.append(out_path, out.cpu().numpy())
 
+    def _run_multi(self, experiment, species: List[str]):
+        """Every species' inputs in one batch -> ``Observables/<output>``.
+
+        Port of the JAX package's ``_run_multi`` (``base.py:161``): the
+        inputs resolve through the same cascade, slabs stream with the
+        one-slab lookahead, ``(T, d)`` outputs land as ``(T, 1, d)`` rows at
+        the dataset's cursor, and an append resumes there.
+        """
+        store = experiment.store
+        n_configs = experiment.number_of_configurations
+        group, name = DatasetKeys.OBSERVABLES, self.output_property.name
+        out_path = join_path(group, name)
+        if store.check_existence(out_path) and store.get_cursor(out_path) >= n_configs:
+            log.debug("%s exists; skipping", out_path)
+            return
+        sources = {
+            sp: {
+                prop.name: self._resolve_input(experiment, sp, prop)
+                for prop in self.input_properties
+            }
+            for sp in species
+        }
+        store.ensure_dataset(group, name, n_configs, 1, self.output_property.n_dims)
+        offset = store.get_cursor(out_path)
+        carry = None
+        if offset > 0 and self.requires_carryover:
+            carry = self.bootstrap_carry_multi(experiment, species, offset)
+        device = get_device()
+        slabs = list(self._batches(experiment, n_configs, offset))
+        for batch in progress_iter(
+            self._prefetched_batches(sources, slabs),
+            desc=type(self).__name__, total=len(slabs), unit="slab",
+        ):
+            # store data stays float32, metadata constants float64
+            tensors = {
+                sp: {
+                    prop: torch.from_numpy(np.ascontiguousarray(a)).to(device)
+                    for prop, a in per.items()
+                }
+                for sp, per in batch.items()
+            }
+            out, carry = self.transform_batch(tensors, carry)
+            store.append(out_path, out.to(torch.float32)[:, None, :].cpu().numpy())
+
     # -- plumbing -------------------------------------------------------------
     @staticmethod
     def _prefetched_batches(sources, slabs):
         """Yield host input batches with one-slab lookahead: the next slab's
         store reads run in a worker thread while the caller computes and
-        writes the current one."""
+        writes the current one. ``sources`` maps a name to a fetch, or (multi
+        species) a species to ``{property: fetch}``."""
 
         def load(bounds):
             start, stop = bounds
-            return {name: fetch(start, stop) for name, fetch in sources.items()}
+            return {
+                name: (
+                    {prop: f(start, stop) for prop, f in fetch.items()}
+                    if isinstance(fetch, dict) else fetch(start, stop)
+                )
+                for name, fetch in sources.items()
+            }
 
         with concurrent.futures.ThreadPoolExecutor(max_workers=1) as pool:
             pending = None
@@ -154,24 +226,31 @@ class Transformation(abc.ABC):
     def _resolve_input(self, experiment, sp_name: str, prop: PropertyInfo):
         """Input cascade: dataset -> metadata constant -> producing trafo.
         Returns ``fetch(start, stop) -> ndarray``. The metadata constants are
-        the box, time step and sample rate (reference
-        ``transformations.py:390-433``); the species' Charge and Masses join
-        them with the flux transformations."""
+        the box, time step and sample rate and the species' charge and mass
+        (reference ``transformations.py:390-433``). A stored dataset that an
+        append left short of the experiment's frames is extended first by
+        its producing transformation, which resumes at its cursor."""
+        from .registry import transformation_for_property
+
+        store = experiment.store
         path = join_path(sp_name, prop.name)
-        if experiment.store.check_existence(path):
-            return lambda a, b, p=path: experiment.store.load(
-                [p], frames=slice(a, b)
-            )[p]
-        const = self._metadata_constant(experiment, prop)
+
+        def fetch(a, b, p=path):
+            return store.load([p], frames=slice(a, b))[p]
+
+        stored = store.check_existence(path)
+        if stored and store.get_cursor(path) >= experiment.number_of_configurations:
+            return fetch
+        const = None if stored else self._metadata_constant(experiment, sp_name, prop)
         if const is not None:
             return lambda a, b, c=const: c
         # recursively produce the input (reference:
         # ``get_prop_through_transformation``, transformations.py:352-388)
-        from .registry import transformation_for_property
-
         producer = transformation_for_property(
             prop.name, experiment=experiment, species=sp_name
         )
+        if producer is None and stored:
+            return fetch  # ingested data nothing derives
         if producer is None:
             raise CannotFindPropertyError(
                 f"Property {prop.name!r} for species {sp_name!r} is neither "
@@ -184,16 +263,23 @@ class Transformation(abc.ABC):
             prop.name,
         )
         producer.run_transformation(experiment, [sp_name])
-        return lambda a, b, p=path: experiment.store.load(
-            [p], frames=slice(a, b)
-        )[p]
+        return fetch
 
     @staticmethod
-    def _metadata_constant(experiment, prop: PropertyInfo):
+    def _metadata_constant(experiment, sp_name: str, prop: PropertyInfo):
         if prop.name == "Box_Array":
             return np.asarray(experiment.box_array)
         if prop.name == "Time_Step":
             return np.asarray(experiment.time_step)
         if prop.name == "Sample_Rate":
             return np.asarray(experiment.sample_rate)
-        return None
+        if prop.name not in ("Charge", "Masses"):
+            return None
+        try:
+            sp = experiment.entity(sp_name)
+        except SpeciesNotFoundError:
+            return None
+        value = sp.charge if prop.name == "Charge" else sp.mass
+        if value is None or (prop.name == "Masses" and not value):
+            return None
+        return np.full((1, 1, 1), float(value))

@@ -1,11 +1,11 @@
 """Property -> producing-transformation registry.
 
 Counterpart of ``lammps_analysis_tpu/transformations/registry.py`` for the
-coordinate transformations (reference:
+coordinate and flux transformations (reference:
 ``mdsuite/transformations/transformation_dict.py:46-62``). It drives the
 automatic dependency resolution of calculators and transformations. The
-flux transformations and ``MolecularMap`` are a later slice of the port:
-asking for a flux property raises ``NotImplementedError``.
+JAX package's ``MolecularMap`` is not ported yet (ROADMAP.md, Queue 1 item
+5): the run hub raises ``NotImplementedError`` for it.
 """
 
 from __future__ import annotations
@@ -17,6 +17,14 @@ from .coordinate_transforms import (
     UnwrapViaIndices,
     VelocityFromPositions,
 )
+from .flux_transforms import (
+    IntegratedHeatCurrent,
+    IonicCurrent,
+    KinaciIntegratedHeatCurrent,
+    MomentumFlux,
+    ThermalFlux,
+    TranslationalDipoleMoment,
+)
 
 #: property name -> transformation classes able to produce it, in
 #: preference order (the store-aware chooser below picks directly, so the
@@ -25,6 +33,12 @@ PROPERTY_TO_TRANSFORMATION = {
     "Unwrapped_Positions": [CoordinateUnwrapper, UnwrapViaIndices],
     "Positions": [ScaleCoordinates, CoordinateWrapper],
     "Velocities_From_Positions": [VelocityFromPositions],
+    "Ionic_Current": [IonicCurrent],
+    "Translational_Dipole_Moment": [TranslationalDipoleMoment],
+    "Thermal_Flux": [ThermalFlux],
+    "Integrated_Heat_Current": [IntegratedHeatCurrent],
+    "Kinaci_Heat_Current": [KinaciIntegratedHeatCurrent],
+    "Momentum_Flux": [MomentumFlux],
 }
 
 ALL_TRANSFORMATIONS = {
@@ -35,13 +49,13 @@ ALL_TRANSFORMATIONS = {
         CoordinateWrapper,
         ScaleCoordinates,
         VelocityFromPositions,
+        IonicCurrent,
+        TranslationalDipoleMoment,
+        ThermalFlux,
+        IntegratedHeatCurrent,
+        KinaciIntegratedHeatCurrent,
+        MomentumFlux,
     )
-}
-
-#: what the JAX package's flux transformations produce; not ported yet
-NOT_PORTED = {
-    "Ionic_Current", "Translational_Dipole_Moment", "Thermal_Flux",
-    "Integrated_Heat_Current", "Kinaci_Heat_Current", "Momentum_Flux",
 }
 
 
@@ -61,13 +75,6 @@ def transformation_for_property(
     CoordinateWrapper needs Unwrapped_Positions -> CoordinateUnwrapper needs
     Positions -> ...
     """
-    if prop_name in NOT_PORTED:
-        raise NotImplementedError(
-            f"{prop_name!r} comes from a flux transformation, a later slice of "
-            "the PyTorch port (with MolecularMap, after the RDF "
-            "post-processing); the coordinate transformations are ported: "
-            f"{sorted(ALL_TRANSFORMATIONS)}"
-        )
     classes = PROPERTY_TO_TRANSFORMATION.get(prop_name)
     if not classes:
         return None

@@ -1,6 +1,6 @@
-"""PyTorch port, the LAMMPS-dump reader and file ingestion, held against the
-JAX package's reader on the same dump text and against MDSuite's own reader
-(``golden_lammps_reader.json``).
+"""PyTorch port, the LAMMPS dump and flux readers and file ingestion, held
+against the JAX package's readers on the same text and against MDSuite's own
+reader (``golden_lammps_reader.json``).
 
 Both readers parse through ``native/table_parser.cpp``; the port builds its
 own copy of it under ``lammps_analysis_tpu_torch/_build/``. Parsed arrays
@@ -16,10 +16,11 @@ import pytest
 import torch
 
 from lammps_analysis_tpu.file_io import LAMMPSDumpFile as JaxDumpFile
-from lammps_analysis_tpu_torch.file_io import LAMMPSDumpFile, native_parser
+from lammps_analysis_tpu.file_io import LAMMPSFluxFile as JaxFluxFile
+from lammps_analysis_tpu_torch.file_io import LAMMPSDumpFile, LAMMPSFluxFile, native_parser
 from lammps_analysis_tpu_torch.utils.config import config
 
-from torch_dumps import random_walk, walk_columns, write_dump
+from torch_dumps import random_walk, walk_columns, write_dump, write_flux_file
 from torch_jax_parser import ensure_jax_native_parser
 
 torch.set_num_threads(1)
@@ -207,3 +208,65 @@ def test_add_data_from_path(tmp_path):
         exp.add_data(tmp_path / "t.xyz")
     with pytest.raises(ValueError, match="Cannot infer a reader"):
         exp.add_data(tmp_path / "t.unknown")
+
+
+def _flux_file(path, n_steps=50, trailing_log=False):
+    rng = np.random.default_rng(21)
+    flux = rng.normal(scale=2.0, size=(n_steps, 3))
+    stress = rng.normal(scale=300.0, size=(n_steps, 3))
+    write_flux_file(path, {
+        "time": 10 * np.arange(n_steps), "temp": 1200.0 + rng.normal(size=n_steps),
+        "c_flux_thermal[1]": flux[:, 0], "c_flux_thermal[2]": flux[:, 1],
+        "c_flux_thermal[3]": flux[:, 2], "pxy": stress[:, 0], "pxz": stress[:, 1],
+        "pyz": stress[:, 2],
+    })
+    if trailing_log:
+        with open(path, "a") as f:
+            f.write("Loop time of 12.5 on 4 procs for 500 steps with 1000 atoms\n\n")
+            f.write("Performance: 3.456 ns/day\n")
+    return path
+
+
+@pytest.mark.parametrize("case", ["block", "trailing-log", "custom-map"])
+def test_flux_reader_matches_jax_reader(tmp_path, case):
+    """Same flux text through both readers: one ``Observables`` particle,
+    the first contiguous block only (log text after it is not read), equal
+    metadata and identical arrays."""
+    path = _flux_file(tmp_path / "flux.dat", trailing_log=case == "trailing-log")
+    kw = dict(sample_rate=10, box_l=[20.0, 20.0, 21.0])
+    if case == "custom-map":
+        kw["custom_data_map"] = {"Shear_Pair": ["pxy", "pxz"]}
+    meta, ours = _read_all(LAMMPSFluxFile(path, **kw))
+    ref_meta, ref = _read_all(JaxFluxFile(path, **kw))
+    assert meta.n_configurations == ref_meta.n_configurations == 50
+    assert meta.box_l == ref_meta.box_l == [20.0, 20.0, 21.0]
+    assert meta.sample_rate == ref_meta.sample_rate == 10
+    assert _species(meta) == _species(ref_meta)
+    expected = {"Temperature", "Time", "Thermal_Flux", "Stress_Visc"}
+    if case == "custom-map":
+        expected.add("Shear_Pair")
+    assert _species(meta) == {"Observables": (1, sorted(expected))}
+    assert set(ours) == set(ref)
+    for key in ref:
+        assert ours[key].dtype == ref[key].dtype and ours[key].shape == (50, 1, ref[key].shape[-1])
+        np.testing.assert_array_equal(ours[key], ref[key], err_msg=key)
+
+
+def test_flux_file_ingests_into_observables(tmp_path):
+    """``add_experiment(simulation_data=LAMMPSFluxFile(...))``: the series
+    land under ``Observables`` with one particle, which counts as no atom."""
+    import lammps_analysis_tpu_torch as lt
+
+    path = _flux_file(tmp_path / "flux.dat", trailing_log=True)
+    _, parsed = _read_all(LAMMPSFluxFile(path, sample_rate=10, box_l=[20.0] * 3))
+    exp = lt.Project(name="p", storage_path=tmp_path).add_experiment(
+        "e", timestep=0.001, temperature=1200.0, units="metal",
+        simulation_data=LAMMPSFluxFile(path, sample_rate=10, box_l=[20.0] * 3),
+    )
+    assert exp.number_of_configurations == 50 and exp.number_of_atoms == 0
+    assert exp.sample_rate == 10 and exp.volume == 8000.0
+    assert exp.species["Observables"].n_particles == 1
+    for key, arr in parsed.items():
+        np.testing.assert_array_equal(exp.store.load([key])[key], arr)
+    with pytest.raises(ValueError, match="LAMMPSFluxFile"):
+        exp.add_data(tmp_path / "flux.unknown")

@@ -321,3 +321,48 @@ def test_transport_on_the_card_matches_the_cpu(cuda, tmp_path):
         config.device = old
     assert_einstein_close(results["cuda"][0], results["cpu"][0])
     assert_gk_close(results["cuda"][1], results["cpu"][1])
+
+
+def test_conductivity_on_the_card_matches_the_cpu(cuda, tmp_path):
+    """The flux transformations and the six system calculators that read
+    them, from one dump, on the card and on the CPU: series within 1e-5 x
+    max|J|, results within the transport tolerance."""
+    from lammps_analysis_tpu_torch import Project
+    from lammps_analysis_tpu_torch.utils.config import config
+    from torch_dumps import (
+        FLUX_SERIES,
+        assert_system_close,
+        flux_columns,
+        random_walk,
+        walk_columns,
+        write_dump,
+    )
+
+    wrapped, _, vel, names = random_walk((30, 20), 40, 10.0, 0.3, 0.02, seed=5)
+    cols = walk_columns(wrapped, vel, names)
+    cols.update(flux_columns(40, 50, seed=6))
+    path = tmp_path / "t.lammpstrj"
+    write_dump(path, 10.0, cols, every=10, shuffle_seed=7)
+    calculators = ("GreenKuboIonicConductivity", "EinsteinHelfandIonicConductivity",
+                   "GreenKuboThermalConductivity", "EinsteinHelfandThermalConductivity",
+                   "EinsteinHelfandThermalKinaci", "GreenKuboViscosity")
+    results = {}
+    old = config.device
+    try:
+        for device in ("cuda", "cpu"):
+            config.device = device
+            exp = Project(name=device, storage_path=tmp_path).add_experiment(
+                "e", timestep=0.002, temperature=1200.0, units="metal", simulation_data=str(path)
+            )
+            exp.set_charge("Na", 1.0)
+            exp.set_charge("Cl", -1.0)
+            values = {c: getattr(exp.run, c)(data_range=12, plot=False).data_dict["System"] for c in calculators}
+            series = {p: exp.store.load([f"Observables/{p}"])[f"Observables/{p}"] for p in FLUX_SERIES}
+            results[device] = values, series
+    finally:
+        config.device = old
+    for prop, ref in results["cpu"][1].items():
+        ref = ref.astype(np.float64)
+        np.testing.assert_allclose(results["cuda"][1][prop], ref, rtol=1e-5, atol=1e-5 * np.abs(ref).max())
+    for name, ref in results["cpu"][0].items():
+        assert_system_close(results["cuda"][0][name], ref)

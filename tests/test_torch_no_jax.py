@@ -45,10 +45,12 @@ def test_port_has_sources():
     for kernel in ("rdf_histogram", "adf_neighbor_extract", "adf_neighbor_cells", "adf_pairs_histogram"):
         assert (PORT / "csrc" / f"{kernel}.cu").exists()
     for package, modules in {
-        "file_io": ("native_parser", "tabular", "lammps_dump"),
-        "transformations": ("base", "coordinate_transforms", "registry"),
+        "file_io": ("native_parser", "tabular", "lammps_dump", "lammps_flux"),
+        "transformations": ("base", "coordinate_transforms", "flux_transforms", "registry"),
         "ops": ("msd", "correlation"),
-        "calculators": ("einstein_diffusion_coefficients", "green_kubo_diffusion_coefficients"),
+        "calculators": ("einstein_diffusion_coefficients", "green_kubo_diffusion_coefficients",
+                        "post_processing", "system_calculators"),
+        "data": ("form_factors",),
     }.items():
         for module in modules:
             assert PORT / package / f"{module}.py" in SOURCES, (package, module)

@@ -142,7 +142,7 @@ def test_port_refuses_missing_gpu_and_files(tmp_path):
     with pytest.raises(NotImplementedError, match="reader is not ported yet"):
         exp.add_data(tmp_path / "traj.xyz")
     with pytest.raises(AttributeError, match="not .*ported|later slices"):
-        exp.run.GreenKuboIonicConductivity
+        exp.run.EinsteinDistinctDiffusionCoefficients
     if torch.cuda.is_available():
         return  # the default device is there: nothing to refuse
     config.device = "cuda"

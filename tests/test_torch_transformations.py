@@ -244,8 +244,14 @@ def test_registry_store_aware_choice_matches_jax(tmp_path, props):
 
 
 def test_registry_refuses_unported_producers():
-    with pytest.raises(NotImplementedError, match="later slice"):
-        transformation_for_property("Ionic_Current")
+    """Every flux property has its producer now; ``MolecularMap``, not
+    ported yet, is refused by the run hub with its ROADMAP item."""
+    from lammps_analysis_tpu_torch.experiment.run import RunComputation
+    from lammps_analysis_tpu_torch.transformations import IonicCurrent
+
+    assert isinstance(transformation_for_property("Ionic_Current"), IonicCurrent)
+    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
+        RunComputation().MolecularMap
     assert transformation_for_property("Forces") is None
     assert isinstance(transformation_for_property("Unwrapped_Positions"), CoordinateUnwrapper)
 
@@ -287,5 +293,5 @@ def test_hub_runs_transformations_like_jax(tmp_path):
     from lammps_analysis_tpu_torch import Project
 
     exp = Project(name="p", storage_path=tmp_path / "lammps_analysis_tpu_torch").experiments["e"]
-    with pytest.raises(AttributeError, match="later slices"):
-        exp.run.IonicCurrent
+    with pytest.raises(NotImplementedError, match="MolecularMap is not in the PyTorch port"):
+        exp.run.MolecularMap

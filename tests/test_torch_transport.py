@@ -126,13 +126,14 @@ def test_windowed_msd_matches_jax(t, window, stride, tau):
 @pytest.mark.parametrize("t, window, stride, tau", OP_CASES)
 def test_windowed_acf_matches_jax(t, window, stride, tau, chunk):
     """``chunk`` windows per FFT batch, from a budget of that many windows'
-    working sets (None: a budget far above the 32-window cap)."""
+    working sets (None: a budget far above a ``BATCH_BYTES`` batch)."""
     rng = np.random.default_rng(t * window + stride + 1)
     x = _series(rng, t, 5, walk=False)
     r = window if tau is None else len(tau)
     window_bytes = 5 * 3 * correlation._next_fast_len(2 * r) * 16
     budget = 2**30 if chunk is None else chunk * window_bytes
-    assert correlation._auto_chunk(5, 3, r, budget) == (32 if chunk is None else chunk)
+    full = max(32, correlation.BATCH_BYTES // window_bytes)
+    assert correlation._auto_chunk(5, 3, r, budget) == (full if chunk is None else chunk)
     ours, per_window = windowed_acf_sum(torch.from_numpy(x), window, stride, budget, tau=tau)
     ref, ref_pw = jcorr.windowed_acf_sum(
         jnp.asarray(x.astype(np.float64)), window, stride,

@@ -1,5 +1,6 @@
-"""Seeded LAMMPS dumps for the port's transport path, float64 direct sums
-of its series, and the comparison of two transport results.
+"""Seeded LAMMPS dumps and flux files for the port's transport and
+conductivity paths, float64 direct sums of their series, and the comparison
+of two transport results.
 
 Numpy only, so that ``chip_smoke.py`` imports it as the tests do.
 
@@ -13,6 +14,14 @@ every Einstein output within rtol 1e-5; the GK ACF within rtol 1e-5 plus an
 atol of 1e-5 x acf[0] (float32 FFT rounding is relative to the largest
 term), its integrals, D and SEM within rtol 1e-5 plus an atol of 1e-5 x
 acf[0] x the longest lag time.
+
+``flux_columns`` adds seeded forces, per-atom energies and stresses to a
+walk; ``flux_series_direct`` evaluates the six flux transformations'
+formulas in float64 on stored arrays; ``gk_system_direct`` and
+``msd_system_direct`` are the system calculators' window averages of one
+``(T, 1, 3)`` series, and ``assert_system_close`` holds two system results
+to the transport tolerance; ``write_flux_file`` writes a LAMMPS flux (log)
+file.
 """
 
 import numpy as np
@@ -148,13 +157,15 @@ def acf_sums_direct(v, window, stride):
     v = np.asarray(v, np.float64).reshape(len(v), -1)
     total = len(v)
     n_windows = (total - window) // stride + 1
-    gram = v @ v.T
+    # short series: one Gram matrix; long ones (a flux log): lag by lag
+    gram = v @ v.T if total <= 4096 else None
     out = np.empty(window)
     for m in range(window):
         t = np.arange(total - m)
         first = np.maximum(0, -(-(t + m - window + 1) // stride))
         last = np.minimum(n_windows - 1, t // stride)
-        out[m] = np.dot(np.diagonal(gram, m), np.maximum(last - first + 1, 0)) / window
+        products = np.diagonal(gram, m) if gram is not None else np.einsum("ti,ti->t", v[: total - m], v[m:])
+        out[m] = np.dot(products, np.maximum(last - first + 1, 0)) / window
     return out
 
 
@@ -196,3 +207,118 @@ def assert_gk_close(ours, ref):
             np.testing.assert_allclose(
                 ours[sp][key], ref[sp][key], rtol=1e-5, atol=1e-5 * acf0 * t[-1], err_msg=key
             )
+
+
+#: the six flux transformations' output properties
+FLUX_SERIES = ("Ionic_Current", "Translational_Dipole_Moment", "Thermal_Flux",
+               "Integrated_Heat_Current", "Kinaci_Heat_Current", "Momentum_Flux")
+
+#: Voigt index of the symmetric stress tensor's (a, b) component
+VOIGT = np.array([[0, 3, 4], [3, 1, 5], [4, 5, 2]])
+
+
+def flux_columns(n_frames, n_atoms, seed):
+    """Seeded ``fx fy fz c_KE c_PE c_Stress[1..6]`` columns, (T, N) each,
+    rounded to the 6 decimals a dump keeps: forces of sd 1 eV/A, kinetic
+    energies in [0, 0.2) eV, potential energies in [-6, -2) eV, stresses of
+    sd 1000 bar A^3."""
+    rng = np.random.default_rng(seed)
+    shape = (n_frames, n_atoms)
+    cols = {f"f{a}": rng.normal(size=shape) for a in "xyz"}
+    cols["c_KE"] = rng.uniform(0.0, 0.2, shape)
+    cols["c_PE"] = rng.uniform(-6.0, -2.0, shape)
+    for i in range(6):
+        cols[f"c_Stress[{i + 1}]"] = rng.normal(scale=1000.0, size=shape)
+    return {k: np.round(v, 6) for k, v in cols.items()}
+
+
+def flux_series_direct(data, charges, dt):
+    """The six flux series ``{name: (T, 3)}`` in float64 from per-species
+    arrays ``data[species][property]`` of shape (T, N, d) (``Velocities``,
+    ``Unwrapped_Positions``, ``Forces``, ``Stress``, ``Kinetic_Energy``,
+    ``Potential_Energy``), species charges ``{species: q}`` and the frame
+    interval ``dt``; Kinaci with each species' integral kept apart."""
+    out = {name: 0.0 for name in FLUX_SERIES}
+    for sp, d in data.items():
+        v, r, f, s = (np.asarray(d[k], np.float64) for k in
+                      ("Velocities", "Unwrapped_Positions", "Forces", "Stress"))
+        ke, pe = (np.asarray(d[k], np.float64)[..., 0] for k in ("Kinetic_Energy", "Potential_Energy"))
+        q = charges[sp]
+        integral = np.cumsum(np.einsum("tnd,tnd->tn", f, v), axis=0) * dt
+        out["Ionic_Current"] = out["Ionic_Current"] + q * v.sum(1)
+        out["Translational_Dipole_Moment"] = out["Translational_Dipole_Moment"] + q * r.sum(1)
+        out["Thermal_Flux"] = out["Thermal_Flux"] + np.einsum("tn,tnd->td", ke + pe, v) \
+            - np.einsum("tnab,tnb->ta", s[..., VOIGT], v)
+        out["Integrated_Heat_Current"] = out["Integrated_Heat_Current"] \
+            + np.einsum("tn,tnd->td", ke + pe, r)
+        out["Kinaci_Heat_Current"] = out["Kinaci_Heat_Current"] \
+            + np.einsum("tn,tnd->td", integral + pe, r)
+        out["Momentum_Flux"] = out["Momentum_Flux"] + s[..., 3:6].sum(1)
+    return out
+
+
+def gk_system_direct(series, window, stride, times, acf_scale=1.0):
+    """``(acf, integral)`` of a system series (T, 1, 3) as the GK system
+    calculators average it: the windowed biased ACF summed over axes, over
+    the window count, times ``acf_scale``; its cumulative trapezoid over
+    ``times``."""
+    n_windows = (len(series) - window) // stride + 1
+    acf = acf_sums_direct(series, window, stride) / n_windows * acf_scale
+    integral = np.cumsum((acf[1:] + acf[:-1]) / 2 * np.diff(times))
+    return acf, integral
+
+
+def msd_system_direct(series, window, stride):
+    """The windowed MSD of a system series (T, 1, 3) over the window count,
+    as the Einstein-Helfand calculators average it (before the prefactor)."""
+    n_windows = (len(series) - window) // stride + 1
+    return msd_sums_direct(series, window, stride) / n_windows
+
+
+def assert_system_close(ours, ref):
+    """Hold one system result (``data_dict["System"]``) to another at the
+    transport tolerance: Einstein-Helfand outputs within rtol 1e-5;
+    Green-Kubo ACF within rtol 1e-5 plus 1e-5 x acf[0], integrals within
+    rtol 1e-5 plus 1e-5 x acf[0] x the longest lag time, the coefficient
+    and its uncertainty the same times the prefactor (the reference
+    estimator's per-window integrals carry the prefactor already)."""
+    assert set(ours) == set(ref), (sorted(ours), sorted(ref))
+    if "acf" not in ref:
+        for key, value in ref.items():
+            np.testing.assert_allclose(ours[key], value, rtol=1e-5, err_msg=key)
+        return
+    acf0, t = abs(ref["acf"][0]), np.asarray(ref["time"])
+    np.testing.assert_allclose(ours["time"], t, rtol=1e-12)
+    np.testing.assert_allclose(ours["acf"], ref["acf"], rtol=1e-5, atol=1e-5 * acf0, err_msg="acf")
+    series = ("time", "acf", "integral", "integral_uncertainty")
+    values = [k for k in ref if k not in series]
+    if not ref["integral_uncertainty"]:  # reference estimator: per-window integrals
+        scale = 1e-5 * np.abs(ref["integral"]).max()
+        for key in ["integral"] + values:
+            np.testing.assert_allclose(ours[key], ref[key], rtol=1e-5, atol=scale, err_msg=key)
+        return
+    scale = 1e-5 * acf0 * t[-1]
+    for key in ("integral", "integral_uncertainty"):
+        np.testing.assert_allclose(ours[key], ref[key], rtol=1e-5, atol=scale, err_msg=key)
+    value = next(k for k in values if k != "uncertainty")
+    prefactor = abs(ref[value][0] / ref["integral"][-1]) if ref["integral"][-1] else 1.0
+    for key in values:
+        np.testing.assert_allclose(ours[key], ref[key], rtol=1e-5, atol=scale * prefactor, err_msg=key)
+
+
+def write_flux_file(path, columns, rows_per_block=100_000):
+    """Write ``columns`` (name -> (T,) array) as a LAMMPS flux file: a
+    comment line, the column names, one row a step; floats with 6
+    decimals, integers as integers."""
+    n_rows = len(next(iter(columns.values())))
+    with open(path, "wb") as f:
+        f.write(b"# flux log\n" + " ".join(columns).encode() + b"\n")
+        for r0 in range(0, n_rows, rows_per_block):
+            r1 = min(r0 + rows_per_block, n_rows)
+            cols = []
+            for values in columns.values():
+                v = np.asarray(values)[r0:r1]
+                cols += [np.full((r1 - r0, 1), ord(" "), np.uint8)] if cols else []
+                cols.append(_fixed6(v) if v.dtype.kind == "f" else _text(v))
+            cols.append(np.full((r1 - r0, 1), ord("\n"), np.uint8))
+            f.write(np.concatenate(cols, -1).tobytes())
