@@ -68,13 +68,27 @@ Phases, one line each (any failure raises and the exit code is not 0):
      and off-diagonal pressures -> ``LAMMPSFluxFile`` -> the GK thermal
      conductivity and the flux-file viscosity, against the float64
      estimator and the white-noise value;
+   * ``[3 water]`` MDSuite's water study from GROMACS files: 3375 rigid
+     waters (10125 atoms, OW HW1 HW2 rows, wrapped per atom so that some
+     hundreds straddle a face at frame 0), 500 frames, written as a TRR and
+     a DCD (and the first 50 frames as a ``.gro`` and an extxyz,
+     ``tests/torch_water.py``) -> each reader through ``add_experiment``
+     (MB/s, arrays against the generator) -> ``MolecularMap`` with
+     ``[H]O[H]`` at 1.7 A on the TRR experiment (unwrap, adjacency and COM
+     on the card; every COM within 1e-3 A of the generator's, the wrapped
+     ones in [0, L); a second call is a no-op) -> the molecular Einstein
+     (D within 3 % of sigma^2 / (2 dt)), the molecular RDF (K1, no plain
+     call) and the atomistic ADF at 1.2 A (binned K2 and K3, the O_H_H peak
+     within 1 deg of 109.47), cache hits, card == CPU on 64 waters;
 4. ``[4 profile]``: seven forced (not cached) calls of each main path on the
    warm process (median wall), then one under ``torch.profiler``: device
    time per kernel, the largest device consumers, and the share of the call
    the device is busy; for the transport path also a forced Einstein call
    that re-runs the unwrap, the ingest wall and M window-frame-atoms/s; for
    the conductivity path each system calculator and each flux
-   transformation (re-run), and the flux log's parse rate.
+   transformation (re-run), and the flux log's parse rate; for the water
+   path ``MolecularMap`` (re-run), the molecular Einstein and RDF and the
+   ADF, ``MolecularMap``'s layer spans and the readers' parse rates.
 
 ``--walls`` runs only the forced-call medians (the transport path's too)
 and the angle kernel's one-frame launch, for an A/B of two checkouts on one
@@ -85,9 +99,9 @@ the angle kernel at several chunk sizes (``adf_kernel.PAIRS_CHUNK``) on the
 one-frame launch, the mixed frame, K = 1076 and 16 main-path frames.
 
 The second-to-last line is a JSON summary of the kernels (times, launches on
-the main paths, bounds), the last line the device record ``{"ok": true,
-"device": {...}}``. Without a CUDA device the script exits non-zero before
-printing either.
+the main paths, the water path's included, bounds), the last line the
+device record ``{"ok": true, "device": {...}}``. Without a CUDA device the
+script exits non-zero before printing either.
 """
 
 from __future__ import annotations
@@ -107,10 +121,11 @@ import time
 import numpy as np
 import torch
 
-# the transport dump's generator and writer and the transport tolerance,
-# shared with the tests
+# the transport dump's and the water box's generators and writers and the
+# transport tolerance, shared with the tests
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent / "tests"))
 import torch_dumps  # noqa: E402
+import torch_water  # noqa: E402
 
 CSRC = "lammps_analysis_tpu_torch/csrc/"
 REPLACES = {
@@ -166,6 +181,12 @@ FLUX_TRANSFORMATIONS = {
     "KinaciIntegratedHeatCurrent": "Kinaci_Heat_Current", "MomentumFlux": "Momentum_Flux",
 }
 POST = ("CoordinationNumbers", "PotentialOfMeanForce", "KirkwoodBuffIntegral", "StructureFactor")
+# MDSuite's water study (GROMACS water, ``CI/functional_tests/test_water_study.py``):
+# 15^3 rigid SPC/E-geometry waters, 10125 atoms in a 46.6 A box (0.997 g/cm^3),
+# COM walk of 0.1 A a frame per axis, 500 frames every 10 steps of 0.002 ps;
+# the .gro and extxyz files hold the first 50
+WATER = dict(n_side=15, box=46.6, n_frames=500, sigma=0.1, timestep=0.002, every=10,
+             text_frames=50, data_range=200)
 
 
 def phase(name: str, message: str) -> None:
@@ -197,7 +218,7 @@ def environment() -> str:
         raise RuntimeError(f"the kernels are built for sm_90a; this card is {cap}")
     optional = {
         mod: importlib.util.find_spec(mod) is not None
-        for mod in ("h5py", "pandas", "psutil", "matplotlib")
+        for mod in ("h5py", "pandas", "psutil", "matplotlib", "networkx", "chemfiles")
     }
     phase("0 env", f"optional packages present (not needed): {optional}")
     gxx = shutil.which("g++")
@@ -1080,6 +1101,29 @@ class Spy:
             delattr(self.owner, self.attr)
 
 
+class Capture:
+    """Keep what ``owner.attr`` is called with during a ``with``: each call's
+    positional arguments (tensors cloned, as a caller may reuse its buffers)
+    and ``note(*args)`` taken at the call."""
+
+    def __init__(self, owner, attr, note=None):
+        self.owner, self.attr, self.note, self.calls = owner, attr, note, []
+
+    def __enter__(self):
+        self.original = getattr(self.owner, self.attr)
+        self.own = self.attr in vars(self.owner)
+
+        def capture(*args, **kwargs):
+            kept = [a.clone() if isinstance(a, torch.Tensor) else a for a in args]
+            self.calls.append((kept, self.note(*args) if self.note else None))
+            return self.original(*args, **kwargs)
+
+        setattr(self.owner, self.attr, capture)
+        return self
+
+    __exit__ = Spy.__exit__
+
+
 def layer_spans(exp, einstein_with_unwrap, gk) -> None:
     """One forced call of each transport calculator with every layer timed
     (host wall, device work synchronised at the end of each span): store
@@ -1566,6 +1610,440 @@ def flux_file_path(card: str) -> dict:
     return dict(walls=walls, traces=traces)
 
 
+def water_files(root) -> tuple[dict, dict]:
+    """The ``[3 water]`` walk and its files under ``root``: ``(walk, {kind:
+    (path, MB)})``; a TRR and a DCD of every frame, a ``.gro`` (with
+    velocities) and an extxyz of the first ``text_frames``."""
+    c = WATER
+    t0 = time.perf_counter()
+    w = torch_water.water_box(c["n_side"], c["n_frames"], c["box"], c["sigma"], seed=2040)
+    gen_s = time.perf_counter() - t0
+    dt = c["timestep"] * c["every"]
+    v = w["velocities"] / dt
+    m = c["text_frames"]
+    root = pathlib.Path(root)
+    writers = {
+        "trr": lambda p: torch_water.write_trr(p, c["box"], x=w["wrapped"], v=v, every=c["every"],
+                                               dt_frame=dt),
+        "dcd": lambda p: torch_water.write_dcd(p, w["wrapped"], c["box"], every=c["every"]),
+        "gro": lambda p: torch_water.write_gro(p, w["wrapped"][:m], c["box"], velocities=v[:m],
+                                               dt_frame=dt),
+        "extxyz": lambda p: torch_water.write_extxyz(p, w["wrapped"][:m], c["box"], every=c["every"]),
+    }
+    files, times = {}, {}
+    for kind, write in writers.items():
+        path = root / f"water.{kind}"
+        t0 = time.perf_counter()
+        write(path)
+        times[kind] = time.perf_counter() - t0
+        files[kind] = (path, path.stat().st_size / 1e6)
+    phase("3 water", f"{w['n_mol']} rigid waters ({3 * w['n_mol']} atoms, OW HW1 HW2 rows), box "
+          f"{c['box']} A, {c['n_frames']} frames, generated in {gen_s:.1f} s; {w['straddling']} "
+          "molecules straddle a box face at frame 0; files: " + ", ".join(
+              f"{kind} {mb:.1f} MB in {times[kind]:.1f} s" for kind, (_, mb) in files.items()))
+    return w, files
+
+
+def water_readers(root, w, files) -> dict:
+    """Each reader alone (MB/s) and through ``add_experiment`` into its own
+    experiment, the stored positions against the walk; returns the
+    experiments and the parse rates."""
+    import lammps_analysis_tpu_torch as lt
+    from lammps_analysis_tpu_torch.file_io import DCDFile, EXTXYZFile, GROFile, TRRFile
+
+    c = WATER
+    n_mol = w["n_mol"]
+    rows = torch_water.species_rows(n_mol)
+    make = {
+        "trr": lambda p: TRRFile(p, species=rows),
+        "dcd": lambda p: DCDFile(p, species=rows),
+        "gro": lambda p: GROFile(p),
+        "extxyz": lambda p: EXTXYZFile(p),
+    }
+    # float32 rounding; .gro keeps 3 decimals in nm (0.005 A) and the store
+    # float32 adds up to 2e-6 A; extxyz 6 decimals, then float32
+    tolerance = {"trr": 1e-4, "dcd": 1e-4, "gro": 5.01e-3, "extxyz": 1e-5}
+    project = lt.Project(name="water", storage_path=root)
+    experiments, rates = {}, {}
+    for kind, (path, mb) in files.items():
+        t0 = time.perf_counter()
+        n_parsed = sum(chunk.chunk_size for chunk in make[kind](path).get_configurations_generator())
+        parse_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        exp = project.add_experiment(kind, timestep=c["timestep"], temperature=300.0, units="metal",
+                                     simulation_data=make[kind](path))
+        ingest_s = time.perf_counter() - t0
+        n_frames = exp.number_of_configurations
+        species = {k: v.n_particles for k, v in exp.species.items()}
+        if n_parsed != n_frames or species != {"O": n_mol, "H": 2 * n_mol} or \
+                not np.allclose(exp.box_array, [c["box"]] * 3, rtol=1e-6):
+            raise RuntimeError(f"water {kind}: {n_parsed} frames parsed, {n_frames} stored, species "
+                               f"{species}, box {exp.box_array}")
+        worst = 0.0
+        for sp in ("O", "H"):
+            stored = exp.store.load([f"{sp}/Positions"])[f"{sp}/Positions"]
+            worst = max(worst, float(np.abs(stored - w["wrapped"][:n_frames, rows[sp]]).max()))
+        if worst > tolerance[kind]:
+            raise RuntimeError(f"water {kind}: stored positions {worst} A from the walk")
+        rates[kind] = mb / parse_s
+        experiments[kind] = exp
+        phase("3 water", f"{kind}: {n_frames} frames, parse {mb / parse_s:.1f} MB/s ({parse_s:.3f} s, "
+              f"reader alone), ingest {mb / ingest_s:.1f} MB/s ({ingest_s:.3f} s); positions within "
+              f"{worst:.2e} A of the walk ({tolerance[kind]:g} allowed); species {species}, sample "
+              f"rate {exp.sample_rate}")
+    return dict(experiments=experiments, rates=rates)
+
+
+def com_error(com, truth, box) -> np.ndarray:
+    """Per molecule, the largest |com - truth| over frames and axes after the
+    whole box vector of the first frame (the image of the molecule's first
+    atom) is taken off."""
+    d = com.astype(np.float64) - truth
+    d -= box * np.round(d[:1] / box)
+    return np.abs(d).max(axis=(0, 2))
+
+
+def water_small(device: str) -> dict:
+    """The molecular path on 64 waters from a TRR, on ``device``."""
+    import lammps_analysis_tpu_torch as lt
+    from lammps_analysis_tpu_torch import config
+    from lammps_analysis_tpu_torch.file_io import TRRFile
+    from lammps_analysis_tpu_torch.memory.planner import BatchPlanner
+
+    config.device = device
+    box = 4 * WATER["box"] / WATER["n_side"]
+    w = torch_water.water_box(4, 40, box, WATER["sigma"], seed=2041)
+    with tempfile.TemporaryDirectory() as root:
+        path = pathlib.Path(root) / "small.trr"
+        torch_water.write_trr(path, box, x=w["wrapped"], v=w["velocities"] / 0.02)
+        exp = lt.Project(name="small", storage_path=root).add_experiment(
+            "w", timestep=WATER["timestep"], units="metal",
+            simulation_data=TRRFile(path, species=torch_water.species_rows(64)))
+        exp.planner = BatchPlanner(memory_budget_bytes=2**33)
+        exp.run.MolecularMap(molecules=[lt.Molecule("water", smiles="[H]O[H]", amount=64, cutoff=1.7)])
+        out = dict(
+            stored=exp.store.load(["O/Positions", "H/Positions", "water/Unwrapped_Positions"]),
+            molecules=exp.molecules,
+            d=exp.run.EinsteinDiffusionCoefficients(molecules=True, data_range=20, plot=False).data_dict,
+            rdf=exp.run.RadialDistributionFunction(molecules=True, number_of_configurations=10,
+                                                   plot=False).data_dict,
+            adf=exp.run.AngularDistributionFunction(number_of_configurations=4, cutoff=1.2,
+                                                    number_of_bins=200, plot=False).data_dict,
+        )
+    config.device = "cuda"
+    return out
+
+
+def water_spans(exp, molecule) -> None:
+    """One ``MolecularMap`` call with its inputs' unwrap dropped too, each
+    layer timed (host wall; device work synchronised at the end of each
+    span): the unwrap, the adjacency, the components, the bond-graph check
+    (cluster graphs and the matcher), the COM on the device, store reads and
+    writes, the results DB."""
+    from lammps_analysis_tpu_torch.database.results_db import ResultsDatabase
+    from lammps_analysis_tpu_torch.database.trajectory_store import TrajectoryStore
+    from lammps_analysis_tpu_torch.transformations import CoordinateUnwrapper, map_molecules
+
+    for path in ("water/Unwrapped_Positions", "water/Positions", "O/Unwrapped_Positions",
+                 "H/Unwrapped_Positions"):
+        exp.store.drop(path)
+    db_methods = ("find_computation", "store_computation", "delete_computations",
+                  "get_attribute", "set_attribute")
+    with contextlib.ExitStack() as stack:
+        spans = {
+            "unwrap (both species, with its reads and writes)": Spy(CoordinateUnwrapper, "run_transformation"),
+            "adjacency on the device": Spy(map_molecules, "build_adjacency", sync=True),
+            "components (scipy)": Spy(map_molecules, "find_molecules"),
+            "cluster graphs": Spy(map_molecules, "cluster_graph"),
+            "bond-graph matcher": Spy(map_molecules, "is_isomorphic_to_reference"),
+            "COM on the device": Spy(map_molecules, "com_batch", sync=True),
+            "store reads (all)": Spy(TrajectoryStore, "load"),
+            "store writes (all)": Spy(TrajectoryStore, "append"),
+        }
+        db = [stack.enter_context(Spy(ResultsDatabase, m)) for m in db_methods]
+        for spy in spans.values():
+            stack.enter_context(spy)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        exp.run.MolecularMap(molecules=[molecule])
+        total = time.perf_counter() - t0
+    db_ms = sum(spy.seconds for spy in db) * 1e3
+    phase("4 profile", f"MolecularMap with the unwrap re-run, layer spans: {total * 1e3:.3f} ms in all; "
+          + "; ".join(f"{name} {spy.seconds * 1e3:.3f} ms in {spy.calls} call(s)"
+                      for name, spy in spans.items())
+          + f"; results DB {db_ms:.3f} ms in {sum(spy.calls for spy in db)} call(s)")
+
+
+def water_rdf_vs_plain(calls) -> dict:
+    """K1 on the molecular RDF's own calls (COM frames, species ids, box,
+    cutoff, bins), held to the plain version bin for bin; the first call
+    timed."""
+    from lammps_analysis_tpu_torch.ops import rdf_kernel
+    from lammps_analysis_tpu_torch.ops.rdf import rdf_histogram_reference
+
+    for n, (args, _) in enumerate(calls):
+        args = tuple(args[:6])
+        pos, sid, box, cutoff, n_bins, n_species = args
+        ours, plain = rdf_kernel.rdf_histogram(*args), rdf_histogram_reference(*args)
+        max_diff = int((ours - plain).abs().max())
+        total = int(plain.sum())
+        if max_diff != 0 or total == 0:
+            raise RuntimeError(f"water K1, call {n}: max |diff| {max_diff} from the plain version, "
+                               f"total {total}")
+        if n == 0:
+            ms = device_ms(lambda: rdf_kernel.rdf_histogram(*args), 10, "rdf_histogram")
+            plain_ms = time_ms(lambda: rdf_histogram_reference(*args), 1)
+            f, n_atoms, _ = pos.shape
+            n_valid = int(((sid >= 0) & (sid < n_species)).sum())
+            pairs = f * n_valid * (n_valid - 1) / 2
+            # as kernel_vs_plain: ~22 operations a pair, 2 more a kept pair
+            bound_ms, bound_by = bound(22 * pairs + 2 * total,
+                                       f * n_atoms * 12 + n_atoms * 4 + plain.numel() * 8)
+            first = dict(max_diff=0, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
+            phase("3 water", f"K1 on the molecular RDF's call: {f} x {n_atoms} COMs, cutoff "
+                  f"{cutoff:.2f} A, {n_bins} bins, {rdf_kernel.histogram_mode(n_species, n_bins)} "
+                  f"histogram, total {total}, equal to the plain version; {ms:.4f} ms on the device, "
+                  f"plain {plain_ms:.3f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+    if not calls:
+        raise RuntimeError("water: the molecular RDF made no K1 call")
+    phase("3 water", f"K1 equal to the plain version on all {len(calls)} call(s) of the molecular RDF")
+    return first
+
+
+def water_adf_vs_plain(feeds) -> dict:
+    """Binned K2 and K3 on the atomistic ADF's own frame batches (the
+    runner's species ids, box, cutoff, K and bins, cut into its launch
+    chunks): the lists equal the plain extract's, the angle histograms within
+    the ADF tolerance of the plain version's on the same lists; the first
+    launch timed."""
+    from lammps_analysis_tpu_torch.ops import adf_kernel
+    from lammps_analysis_tpu_torch.ops.adf import (
+        adf_pairs_histogram_reference,
+        neighbor_extract_reference,
+    )
+
+    if not feeds:
+        raise RuntimeError("water: the atomistic ADF fed no frame batch")
+    results, n_launches = {}, 0
+    for (runner, positions), k_n in feeds:
+        sid, box, cutoff, n_species = runner.species_id, runner.box, runner.cutoff, runner.n_species
+        box_t = tuple(float(b) for b in np.asarray(box).reshape(-1))
+        route = adf_kernel.extract_route(box_t, cutoff, k_n)
+        if route != "binned":
+            raise RuntimeError(f"water: the ADF's extract routes to {route}, not binned")
+        n_frames, n_atoms, _ = positions.shape
+        chunk = max(1, runner.LIST_BYTES // max(n_atoms * k_n * 20, 1))
+        for f0 in range(0, n_frames, chunk):
+            pos = positions[f0 : f0 + chunk]
+            args = (pos, sid, box, cutoff, k_n, n_species)
+            ours = adf_kernel.neighbor_extract_binned(*args)
+            plain = neighbor_extract_reference(*args)
+            counts = plain[5]
+            rows = counts <= k_n  # a saturated center: count exact, slots unspecified
+            for name, a, b in zip(("rx", "ry", "rz", "d", "sid"), ours, plain):
+                if a.dtype != b.dtype or a.shape != b.shape or not torch.equal(a[rows], b[rows]):
+                    raise RuntimeError(f"water K2 binned: {name} differs from the plain version")
+            if not torch.equal(ours[5], counts):
+                raise RuntimeError("water K2 binned: counts differ from the plain version")
+            del ours
+            pair_args = (*plain[:5], counts, sid, runner.n_bins, n_species, runner.norm_power)
+            hist = adf_kernel.adf_pairs_histogram(*pair_args)
+            hist_plain = adf_pairs_histogram_reference(*pair_args)
+            max_diff = check_hist("water K3", hist.cpu().numpy(), hist_plain.cpu().numpy())
+            n_launches += 1
+            if results:
+                results["angles"]["max_diff"] = max(results["angles"]["max_diff"], max_diff)
+                continue
+            ms = device_ms(lambda: adf_kernel.neighbor_extract_binned(*args), 20, "adf_neighbor_cells")
+            plain_ms = time_ms(lambda: neighbor_extract_reference(*args), 1)
+            bound_ms, bound_by = extract_bound(pos, sid, box_t, cutoff, n_species, k_n, counts)
+            results["extract"] = dict(max_diff=0.0, ms=ms, plain_ms=plain_ms,
+                                      bound_ms=bound_ms, bound_by=bound_by)
+            a_ms = device_ms(lambda: adf_kernel.adf_pairs_histogram(*pair_args), 20, "adf_pairs_histogram")
+            a_plain_ms = time_ms(lambda: adf_pairs_histogram_reference(*pair_args), 1)
+            angles, (a_bound, a_by) = pairs_bound(plain[4], counts, sid, n_species, hist_plain.numel())
+            results["angles"] = dict(max_diff=max_diff, ms=a_ms, plain_ms=a_plain_ms,
+                                     bound_ms=a_bound, bound_by=a_by)
+            ids, runs = torch.unique_consecutive(sid, return_counts=True)
+            layout = ", ".join(f"{i} x {n}" for i, n in zip(ids.tolist(), runs.tolist()))
+            phase("3 water", f"binned K2 and K3 on the ADF's launch: {pos.shape[0]} x {n_atoms} atoms "
+                  f"(species ids in runs: {layout}), cutoff {cutoff} A, K={k_n}, mean count "
+                  f"{float(counts.float().mean()):.3f}, largest {int(counts.max())}; lists equal to the "
+                  f"plain version's; K2 {ms:.4f} ms on the device (plain {plain_ms:.3f} ms, bound "
+                  f"{bound_ms:.4f} ms, {bound_by}); K3 on {angles:.0f} angles, max |diff| {max_diff:.3g}, "
+                  f"{a_ms:.4f} ms (plain {a_plain_ms:.3f} ms, bound {a_bound:.4f} ms, {a_by})")
+    phase("3 water", f"binned K2 and K3 held to the plain versions on all {n_launches} launch(es) of the ADF")
+    return results
+
+
+def water_main_path(card: str) -> dict:
+    """``[3 water]``: MDSuite's water study from GROMACS files on the card."""
+    import lammps_analysis_tpu_torch as lt
+    from lammps_analysis_tpu_torch import config
+    from lammps_analysis_tpu_torch.calculators import radial_distribution_function
+    from lammps_analysis_tpu_torch.graph import molecular_graph
+    from lammps_analysis_tpu_torch.ops import adf_kernel, msd, rdf_kernel
+    from lammps_analysis_tpu_torch.ops.adf import (
+        adf_pairs_histogram_reference,
+        neighbor_extract_reference,
+    )
+    from lammps_analysis_tpu_torch.ops.rdf import rdf_histogram_reference
+    from lammps_analysis_tpu_torch.parallel import sharded_ops
+    from lammps_analysis_tpu_torch.transformations import CoordinateUnwrapper, map_molecules
+
+    c = WATER
+    config.device = "cuda"
+    with tempfile.TemporaryDirectory() as root:
+        w, files = water_files(root)
+        readers = water_readers(root, w, files)
+        exp = readers["experiments"]["trr"]
+        n_mol = w["n_mol"]
+        box = float(exp.box_array[0])
+        water = lt.Molecule("water", smiles="[H]O[H]", amount=n_mol, cutoff=1.7)
+
+        with Spy(CoordinateUnwrapper, "transform_batch") as unwrap, \
+                Spy(molecular_graph, "minimum_image") as adjacency, \
+                Spy(map_molecules, "com_batch") as com_spy:
+            t0 = time.perf_counter()
+            exp.run.MolecularMap(molecules=[water])
+            map_s = time.perf_counter() - t0
+        record = exp.molecules["water"]
+        if record["n_particles"] != n_mol or len(record["groups"]) != n_mol:
+            raise RuntimeError(f"water: {record['n_particles']} molecules mapped, {n_mol} expected")
+        devices = {"unwrap": unwrap.devices, "adjacency": adjacency.devices, "COM": com_spy.devices}
+        if any(d != {"cuda"} for d in devices.values()):
+            raise RuntimeError(f"water: devices {devices}; all must be cuda")
+        com = exp.store.load(["water/Unwrapped_Positions"])["water/Unwrapped_Positions"]
+        err = com_error(com, w["com"], box)
+        images = np.floor(w["unwrapped"][0] / c["box"]).reshape(n_mol, 3, 3)
+        straddles = (images != images[:, :1]).any(axis=(1, 2))
+        wrapped = exp.store.load(["water/Positions"])["water/Positions"]
+        in_box = bool((wrapped >= 0).all() and (wrapped < np.float32(box)).all())
+        if err.max() > 1e-3 or not in_box:
+            raise RuntimeError(f"water: COM {err.max()} A from the generator's (straddlers "
+                               f"{err[straddles].max()}), wrapped COM in [0, L): {in_box}")
+        phase("3 water", f"MolecularMap {map_s:.3f} s: {n_mol} molecules, none rejected; unwrap "
+              f"{unwrap.calls} slab(s), adjacency chunks {adjacency.calls // 3}, COM {com_spy.calls} "
+              f"slab(s), all on {devices['COM']}; unwrapped COM within {err.max():.2e} A of the "
+              f"generator's ({straddles.sum()} straddlers: {err[straddles].max():.2e} A; up to a whole "
+              f"box vector), wrapped COM in [0, L)")
+        cursor = exp.store.get_cursor("water/Unwrapped_Positions")
+        with Spy(map_molecules, "com_batch") as again:
+            exp.run.MolecularMap(molecules=[water])
+        if again.calls or exp.store.get_cursor("water/Unwrapped_Positions") != cursor:
+            raise RuntimeError("water: the second MolecularMap call was not a no-op")
+        phase("3 water", "second MolecularMap call: a no-op")
+
+        dt = c["timestep"] * c["every"]
+        expected = c["sigma"] ** 2 / (2 * dt) * 1e-8  # A^2/ps -> m^2/s
+        kw_e = dict(molecules=True, data_range=c["data_range"], correlation_time=1, plot=False)
+        with Spy(msd, "windowed_msd_sum") as comb:
+            einstein = exp.run.EinsteinDiffusionCoefficients(**kw_e)
+        d = float(einstein["water"]["diffusion_coefficient"])
+        if comb.devices != {"cuda"} or abs(d / expected - 1) > 0.03:
+            raise RuntimeError(f"water: D {d} against sigma^2/(2 dt) {expected}, MSD on {comb.devices}")
+        phase("3 water", f"molecular Einstein (range {c['data_range']}, MSD on {comb.devices}): D "
+              f"{d:.6e} m^2/s, sigma^2/(2 dt) {expected:.6e} ({100 * (d / expected - 1):+.2f} %, 3 % "
+              "allowed)")
+
+        kw_r = dict(molecules=True, number_of_configurations=64, plot=False)
+        rdf_kernel.launches = 0
+        rdf_histogram_reference.calls = 0
+        with Capture(radial_distribution_function, "sharded_rdf_histogram") as rdf_calls:
+            rdf = exp.run.RadialDistributionFunction(**kw_r)
+        rdf_launches, plain = rdf_kernel.launches, rdf_histogram_reference.calls
+        g = np.asarray(rdf["water_water"]["y"])
+        if rdf_launches < 1 or plain != 0 or sorted(rdf.data_dict) != ["water_water"] \
+                or not np.all(np.isfinite(g)) or g.sum() <= 0:
+            raise RuntimeError(f"water: molecular RDF {rdf_launches} launches, {plain} plain calls, "
+                               f"keys {sorted(rdf.data_dict)}")
+        x = np.asarray(rdf["water_water"]["x"]) * 10.0
+        median = float(np.median(g[x >= x[-1] / 2]))
+        phase("3 water", f"molecular RDF water_water, 64 frames x {n_mol} COMs, {g.size} bins: K1 "
+              f"launches {rdf_launches}, plain calls 0, g(r) finite, median over "
+              f"{x[-1] / 2:.1f}-{x[-1]:.1f} A {median:.4f}")
+
+        counters = {
+            "adf_neighbor_cells": adf_kernel.neighbor_extract_binned,
+            "adf_neighbor_extract": adf_kernel.neighbor_extract_sweep,
+            "adf_pairs_histogram": adf_kernel.adf_pairs_histogram,
+        }
+        for fn in counters.values():
+            fn.launches = 0
+        neighbor_extract_reference.calls = 0
+        adf_pairs_histogram_reference.calls = 0
+        kw_a = dict(number_of_configurations=16, start=0, cutoff=1.2, number_of_bins=500, plot=False)
+        with Capture(sharded_ops.AdfBatchRunner, "feed", note=lambda r, _: r.plan.k_n) as feeds:
+            adf = exp.run.AngularDistributionFunction(**kw_a)
+        adf_launches = {name: fn.launches for name, fn in counters.items()}
+        plain = neighbor_extract_reference.calls + adf_pairs_histogram_reference.calls
+        peak = adf["O_H_H"]["max_peak"]
+        if adf_launches["adf_neighbor_cells"] < 1 or adf_launches["adf_neighbor_extract"] != 0 \
+                or adf_launches["adf_pairs_histogram"] < 1 or plain != 0 or abs(peak - 109.47) > 1.0:
+            raise RuntimeError(f"water: ADF launches {adf_launches}, {plain} plain calls, O_H_H peak {peak}")
+        phase("3 water", f"atomistic ADF, 16 frames x {3 * n_mol} atoms, cutoff 1.2 A, 500 bins: "
+              f"launches {adf_launches}, 0 plain calls; O_H_H peak {peak:.3f} deg (109.47 +- 1)")
+        # the kernels against their plain versions on the calls the path made
+        # (after the launch counts are read: these launches are not counted)
+        cases = {"rdf": water_rdf_vs_plain(rdf_calls.calls), **water_adf_vs_plain(feeds.calls)}
+        del rdf_calls, feeds
+
+        results = (einstein.data_dict, rdf.data_dict, adf.data_dict)
+        before = [fn.launches for fn in counters.values()] + [rdf_kernel.launches]
+        with Spy(msd, "windowed_msd_sum") as comb:
+            again = (exp.run.EinsteinDiffusionCoefficients(**kw_e).data_dict,
+                     exp.run.RadialDistributionFunction(**kw_r).data_dict,
+                     exp.run.AngularDistributionFunction(**kw_a).data_dict)
+        after = [fn.launches for fn in counters.values()] + [rdf_kernel.launches]
+        if again != results or after != before or comb.calls:
+            raise RuntimeError("water: the second calculator calls were not cache hits")
+        phase("3 water", "second calls of Einstein, RDF and ADF: cache hits, no launch, no MSD slab")
+
+        def forced_map():
+            exp.store.drop("water/Unwrapped_Positions")
+            exp.store.drop("water/Positions")
+            exp.run.MolecularMap(molecules=[water])
+
+        forced = {
+            "MolecularMap (molecule datasets dropped)": forced_map,
+            f"molecular Einstein, range {c['data_range']}": lambda: exp.run.EinsteinDiffusionCoefficients(
+                force=True, **kw_e),
+            "molecular RDF, 64 frames": lambda: exp.run.RadialDistributionFunction(force=True, **kw_r),
+            "atomistic ADF, 16 frames, cutoff 1.2 A": lambda: exp.run.AngularDistributionFunction(
+                force=True, **kw_a),
+        }
+        walls, traces = {}, {}
+        for label, fn in forced.items():
+            walls[label] = forced_calls(f"water {label}, forced", fn)
+            traces[label] = profile_call(f"water {label}, forced", fn)
+        if traces["MolecularMap (molecule datasets dropped)"]["device_ms"] <= 0:
+            raise RuntimeError("water: no device kernel in the MolecularMap trace")
+        water_spans(exp, water)
+        phase("4 profile", "water readers' parse rates (reader alone): " + ", ".join(
+            f"{kind} {rate:.1f} MB/s" for kind, rate in readers["rates"].items()))
+
+    # the same path on a small water box, on the card and on the CPU
+    card, cpu = water_small("cuda"), water_small("cpu")
+    for key in ("O/Positions", "H/Positions"):
+        if not np.array_equal(card["stored"][key], cpu["stored"][key]):
+            raise RuntimeError(f"water small: stored {key} differs between the card and the CPU")
+    com_diff = float(np.abs(card["stored"]["water/Unwrapped_Positions"]
+                            - cpu["stored"]["water/Unwrapped_Positions"]).max())
+    if com_diff > 1e-5 or card["molecules"] != cpu["molecules"] or card["rdf"] != cpu["rdf"]:
+        raise RuntimeError(f"water small: COM differs by {com_diff}, or the record or g(r) differs")
+    torch_dumps.assert_einstein_close(card["d"], cpu["d"])
+    for key, value in cpu["adf"].items():
+        if sum(value["adf"]) == 0:
+            if sum(card["adf"][key]["adf"]) != 0:
+                raise RuntimeError(f"water small: ADF {key} empty on the CPU only")
+            continue
+        check_hist(f"water small ADF {key}", np.asarray(card["adf"][key]["adf"]), np.asarray(value["adf"]))
+    phase("3 water", f"small box (64 waters, 40 frames): stored atoms identical, records equal, COM within "
+          f"{com_diff:.1e} A, D within the transport tolerance, g(r) identical, ADF within the angle-"
+          "histogram tolerance")
+    return dict(rdf_launches=rdf_launches, adf_launches=adf_launches, walls=walls, traces=traces,
+                cases=cases)
+
 
 def kernel_record(name: str, launches: int, cases: list, main: dict) -> dict:
     return {
@@ -1731,6 +2209,13 @@ def main() -> int:
     transport = transport_main_path(card)
     flux_main_path(card, transport)
     flux_file_path(card)
+    water = water_main_path(card)
+    rdf_launches += water["rdf_launches"]
+    for name, n in water["adf_launches"].items():
+        adf_launches[name] += n
+    rdf["w water molecular RDF"] = water["cases"]["rdf"]
+    adf["extract binned w water ADF"] = water["cases"]["extract"]
+    adf["angles w water ADF"] = water["cases"]["angles"]
 
     def cases(prefix):
         return [v for k, v in adf.items() if k.startswith(prefix)]

@@ -24,6 +24,7 @@ import logging
 
 from .utils import units
 from .utils.config import config
+from .utils.molecule import Molecule
 
 _LAZY = {
     "Project": ("lammps_analysis_tpu_torch.project.project", "Project"),
@@ -41,7 +42,7 @@ def __getattr__(name):
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 
-__all__ = ["Project", "Experiment", "units", "config"]
+__all__ = ["Project", "Experiment", "Molecule", "units", "config"]
 
 __version__ = "0.1.0"
 

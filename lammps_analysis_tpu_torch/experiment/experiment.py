@@ -7,10 +7,10 @@ DB, whose schema is the JAX package's. All scalar metadata (temperature, time
 step, units, counts, box, species) are lazy SQL-backed attributes so
 re-opening a project restores everything.
 
-Sources: a LAMMPS dump path (``.lammpstrj``, ``.lammpstraj``, ``.dump``), a
-``FileProcessor`` (``LAMMPSDumpFile``, ``LAMMPSFluxFile``, in-memory
-``ScriptInput``), or a list of them. The JAX package's other readers are
-later slices.
+Sources: a trajectory path (a LAMMPS dump ``.lammpstrj``, ``.lammpstraj``,
+``.dump``; extxyz ``.extxyz``, ``.xyz``; GROMACS ``.gro``, ``.trr``; DCD
+``.dcd``), a ``FileProcessor`` (those readers, ``LAMMPSFluxFile``,
+``ChemfilesRead``, in-memory ``ScriptInput``), or a list of them.
 """
 
 from __future__ import annotations
@@ -33,34 +33,33 @@ from ..utils.units import UnitSystem, resolve_units
 
 log = logging.getLogger(__name__)
 
-#: suffixes the JAX package reads with a reader the port has not yet
-_LATER_READERS = {
-    ".extxyz": "EXTXYZFile", ".xyz": "EXTXYZFile", ".gro": "GROFile",
-    ".dcd": "DCDFile", ".trr": "TRRFile",
-}
-
 
 def _processor_for_path(path: Union[str, pathlib.Path]) -> FileProcessor:
     """Choose a reader from the file suffix.
 
     Reference analog: ``experiment/experiment.py:62-86``.
     """
+    from ..file_io.dcd import DCDFile
+    from ..file_io.extxyz import EXTXYZFile
+    from ..file_io.gro import GROFile
     from ..file_io.lammps_dump import LAMMPSDumpFile
+    from ..file_io.trr import TRRFile
 
     suffix = pathlib.Path(path).suffix.lower()
     if suffix in (".lammpstraj", ".dump", ".lammpstrj"):
         return LAMMPSDumpFile(path)
-    if suffix in _LATER_READERS:
-        raise NotImplementedError(
-            f"Cannot read {str(path)!r}: the {_LATER_READERS[suffix]} reader is "
-            "not ported yet (a later slice of the PyTorch port, ROADMAP.md "
-            "Queue 1 item 2). Convert to a LAMMPS dump or ingest through "
-            "file_io.ScriptInput."
-        )
+    if suffix in (".extxyz", ".xyz"):
+        return EXTXYZFile(path)
+    if suffix == ".gro":
+        return GROFile(path)
+    if suffix == ".dcd":
+        return DCDFile(path)
+    if suffix == ".trr":
+        return TRRFile(path)
     raise ValueError(
         f"Cannot infer a reader for {str(path)!r} (suffix {suffix!r}). Pass a "
-        "FileProcessor instance (LAMMPSDumpFile, LAMMPSFluxFile, ScriptInput) "
-        "instead."
+        "FileProcessor instance (LAMMPSDumpFile, EXTXYZFile, LAMMPSFluxFile, "
+        "GROFile, DCDFile, TRRFile, ChemfilesRead, ScriptInput) instead."
     )
 
 

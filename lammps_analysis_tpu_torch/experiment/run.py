@@ -40,12 +40,6 @@ class RunComputation:
                 experiment=self.experiment,
                 experiments=self.experiments,
             )
-        if name == "MolecularMap":
-            raise NotImplementedError(
-                "MolecularMap is not in the PyTorch port yet (ROADMAP.md, "
-                "Queue 1 item 5); map molecules with the JAX package or ingest "
-                "molecule centres as species."
-            )
         trafos = _transformation_registry()
         if name in trafos:
             cls = trafos[name]
@@ -60,8 +54,7 @@ class RunComputation:
             f"No calculator or transformation named {name!r} in the PyTorch "
             f"port. Ported calculators: {sorted(calcs)}; transformations: "
             f"{sorted(trafos)}. The JAX package's other calculators (the "
-            "distinct diffusion pair, the SDF) and MolecularMap are later "
-            "slices (ROADMAP.md)."
+            "distinct diffusion pair, the SDF) are later slices (ROADMAP.md)."
         )
 
     def __dir__(self):

@@ -5,7 +5,9 @@ form the port's kernels compute it: ``r - box * rint(r * (1/box))`` with the
 float32 reciprocal ``1/box`` computed once on the host (``box_scalars``), as
 the TPU kernels do (``pallas_rdf.py:161-163``, ``pallas_adf.py:372``). The
 JAX package's XLA path divides by the box instead; the two can differ for a
-displacement within about one float32 ulp of half a box.
+displacement within about one float32 ulp of half a box. Also the
+counterpart of its ``wrap_coordinates`` (the coordinate wrapper and molecule
+mapping).
 """
 
 from __future__ import annotations
@@ -61,3 +63,23 @@ def minimum_image(r: torch.Tensor, edge: float, inv_edge: float) -> torch.Tensor
     ``torch.round`` rounds half to even, as ``rintf`` does in the kernels.
     """
     return r - edge * torch.round(r * inv_edge)
+
+
+def wrap_coordinates(
+    pos: torch.Tensor, box: torch.Tensor, center: bool = False
+) -> torch.Tensor:
+    """Wrap positions into the primary box image.
+
+    Counterpart of ``lammps_analysis_tpu/ops/geometry.py::wrap_coordinates``:
+    ``pos - box * floor(pos / box)``, in the inputs' dtype. ``center=True``
+    wraps into ``[-box/2, box/2)`` instead of ``[0, box)`` (reference:
+    ``transformations/wrap_coordinates.py:51-80``), shifting before the
+    floor-wrap and back after, so the result stays congruent to the input
+    modulo the box.
+    """
+    if center:
+        pos = pos + box * 0.5
+    wrapped = pos - box * torch.floor(pos / box)
+    if center:
+        wrapped = wrapped - box * 0.5
+    return wrapped

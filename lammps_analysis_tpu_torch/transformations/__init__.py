@@ -1,7 +1,7 @@
 """Transformations: derived per-frame tensors written back to the store.
 
-The port carries the coordinate and flux transformations; the JAX
-package's ``MolecularMap`` is a later slice (ROADMAP.md, Queue 1 item 5).
+The port carries the coordinate and flux transformations and
+``MolecularMap``.
 """
 from .base import Transformation  # noqa: F401
 from .coordinate_transforms import (  # noqa: F401
@@ -19,6 +19,7 @@ from .flux_transforms import (  # noqa: F401
     ThermalFlux,
     TranslationalDipoleMoment,
 )
+from .map_molecules import MolecularMap  # noqa: F401
 from .registry import (  # noqa: F401
     ALL_TRANSFORMATIONS,
     PROPERTY_TO_TRANSFORMATION,

@@ -21,6 +21,7 @@ import torch
 
 from ..database.properties import mdsuite_properties as mp
 from ..database.trajectory_store import join_path
+from ..ops.geometry import wrap_coordinates
 from ..utils.config import get_device
 from .base import Transformation
 
@@ -100,14 +101,7 @@ class CoordinateWrapper(Transformation):
     def transform_batch(self, batch, carryover=None):
         pos = batch[mp.unwrapped_positions.name]
         box = batch[mp.box_length.name]
-        # center_box wraps to [-L/2, L/2): shift +L/2, floor-wrap to [0, L),
-        # shift back (wrap_coordinates.py:68-73)
-        if self.center_box:
-            pos = pos + box / 2.0
-        wrapped = pos - torch.floor(pos / box) * box
-        if self.center_box:
-            wrapped = wrapped - box / 2.0
-        return wrapped, None
+        return wrap_coordinates(pos, box, self.center_box), None
 
 
 class ScaleCoordinates(Transformation):

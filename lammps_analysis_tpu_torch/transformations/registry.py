@@ -1,11 +1,9 @@
 """Property -> producing-transformation registry.
 
 Counterpart of ``lammps_analysis_tpu/transformations/registry.py`` for the
-coordinate and flux transformations (reference:
+coordinate and flux transformations and ``MolecularMap`` (reference:
 ``mdsuite/transformations/transformation_dict.py:46-62``). It drives the
-automatic dependency resolution of calculators and transformations. The
-JAX package's ``MolecularMap`` is not ported yet (ROADMAP.md, Queue 1 item
-5): the run hub raises ``NotImplementedError`` for it.
+automatic dependency resolution of calculators and transformations.
 """
 
 from __future__ import annotations
@@ -25,6 +23,7 @@ from .flux_transforms import (
     ThermalFlux,
     TranslationalDipoleMoment,
 )
+from .map_molecules import MolecularMap
 
 #: property name -> transformation classes able to produce it, in
 #: preference order (the store-aware chooser below picks directly, so the
@@ -55,6 +54,7 @@ ALL_TRANSFORMATIONS = {
         IntegratedHeatCurrent,
         KinaciIntegratedHeatCurrent,
         MomentumFlux,
+        MolecularMap,
     )
 }
 

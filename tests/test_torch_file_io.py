@@ -204,7 +204,7 @@ def test_add_data_from_path(tmp_path):
     assert exp.number_of_configurations == 12 and exp.version == version
     exp.add_data(path, force=True)
     assert exp.number_of_configurations == 24 and exp.version > version
-    with pytest.raises(NotImplementedError, match="EXTXYZFile reader is not ported"):
+    with pytest.raises(FileNotFoundError):  # the extxyz reader takes the suffix now
         exp.add_data(tmp_path / "t.xyz")
     with pytest.raises(ValueError, match="Cannot infer a reader"):
         exp.add_data(tmp_path / "t.unknown")

@@ -14,7 +14,9 @@ tolerance (totals rtol 1e-5; at most max(2, size // 64) bins outside rtol
 1e-4: its float64 atomics sum in another order), on the same tensors.
 The transport slice, which has no hand-written kernel, runs its Einstein and
 Green-Kubo calculators from a small dump on the card and on the CPU, which
-must agree within the transport tolerance (``tests/torch_dumps.py``).
+must agree within the transport tolerance (``tests/torch_dumps.py``); so do
+the conductivity path and the molecular path (a small water box from a TRR,
+``tests/torch_water.py``).
 Marked ``cuda``; without a CUDA device every test skips. On a machine with a
 card: ``python -m pytest tests/test_torch_kernels_cuda.py -m cuda --noconftest``.
 """
@@ -366,3 +368,71 @@ def test_conductivity_on_the_card_matches_the_cpu(cuda, tmp_path):
         np.testing.assert_allclose(results["cuda"][1][prop], ref, rtol=1e-5, atol=1e-5 * np.abs(ref).max())
     for name, ref in results["cpu"][0].items():
         assert_system_close(results["cuda"][0][name], ref)
+
+
+def test_molecular_path_on_the_card_matches_the_cpu(cuda, tmp_path):
+    """A small water box from a TRR through ``MolecularMap`` (adjacency and
+    COM on the device), the molecular Einstein and RDF and the atomistic
+    ADF, on the card and on the CPU: stored atoms and the molecule record
+    identical, COM within 1e-5 A, D within the transport tolerance, g(r)
+    equal, ADF within the angle-histogram tolerance."""
+    import lammps_analysis_tpu_torch as lt
+    from lammps_analysis_tpu_torch.file_io import TRRFile
+    from lammps_analysis_tpu_torch.memory.planner import BatchPlanner
+    from lammps_analysis_tpu_torch.transformations import map_molecules
+    from lammps_analysis_tpu_torch.utils.config import config
+    from torch_dumps import assert_einstein_close
+    import torch_water as tw
+
+    box = 4 * 3.1067
+    w = tw.water_box(4, 40, box, 0.1, seed=21)
+    path = tmp_path / "w.trr"
+    tw.write_trr(path, box, x=w["wrapped"], v=w["velocities"] / 0.02)
+    com_devices = set()
+    original = map_molecules.com_batch
+
+    def spy(pos, *args):
+        com_devices.add(pos.device.type)
+        return original(pos, *args)
+
+    results = {}
+    old = config.device
+    try:
+        map_molecules.com_batch = spy
+        for device in ("cuda", "cpu"):
+            config.device = device
+            exp = lt.Project(name=device, storage_path=tmp_path).add_experiment(
+                "w", timestep=0.002, units="metal",
+                simulation_data=TRRFile(path, species=tw.species_rows(64)),
+            )
+            exp.planner = BatchPlanner(memory_budget_bytes=2**33)
+            exp.run.MolecularMap(molecules=[lt.Molecule("water", smiles="[H]O[H]", amount=64, cutoff=1.7)])
+            stored = exp.store.load(["O/Positions", "H/Positions", "water/Unwrapped_Positions"])
+            results[device] = dict(
+                stored=stored,
+                molecules=exp.molecules,
+                d=exp.run.EinsteinDiffusionCoefficients(molecules=True, data_range=20, plot=False).data_dict,
+                rdf=exp.run.RadialDistributionFunction(molecules=True, number_of_configurations=10,
+                                                       plot=False).data_dict,
+                adf=exp.run.AngularDistributionFunction(number_of_configurations=4, cutoff=1.2,
+                                                        number_of_bins=200, plot=False).data_dict,
+            )
+    finally:
+        config.device = old
+        map_molecules.com_batch = original
+    card, cpu = results["cuda"], results["cpu"]
+    assert com_devices == {"cuda", "cpu"}
+    for key in ("O/Positions", "H/Positions"):
+        np.testing.assert_array_equal(card["stored"][key], cpu["stored"][key])
+    np.testing.assert_allclose(card["stored"]["water/Unwrapped_Positions"],
+                               cpu["stored"]["water/Unwrapped_Positions"], rtol=0, atol=1e-5)
+    assert card["molecules"] == cpu["molecules"] and card["molecules"]["water"]["n_particles"] == 64
+    assert_einstein_close(card["d"], cpu["d"])
+    assert card["rdf"] == cpu["rdf"]
+    for key, value in cpu["adf"].items():
+        ours, plain = torch.as_tensor(card["adf"][key]["adf"]), torch.as_tensor(value["adf"])
+        if plain.sum() == 0:  # a triple with no pair of neighbors inside 1.2 A
+            assert ours.sum() == 0, key
+            continue
+        _assert_adf_close(ours, plain)
+    assert card["adf"]["O_H_H"]["max_peak"] == cpu["adf"]["O_H_H"]["max_peak"]

@@ -1,4 +1,4 @@
-"""The PyTorch port imports neither jax nor the JAX package.
+"""The PyTorch port imports neither jax nor the JAX package, nor networkx.
 
 An AST walk over every module of ``lammps_analysis_tpu_torch``. It reads the
 sources rather than ``sys.modules``: other code in the test process may
@@ -19,7 +19,7 @@ SOURCES = sorted(PORT.rglob("*.py"))
 
 def _forbidden(name: str) -> bool:
     root = name.split(".")[0]
-    return root in ("jax", "jaxlib", "lammps_analysis_tpu")
+    return root in ("jax", "jaxlib", "lammps_analysis_tpu", "networkx")
 
 
 def _imports(tree: ast.AST):
@@ -45,9 +45,13 @@ def test_port_has_sources():
     for kernel in ("rdf_histogram", "adf_neighbor_extract", "adf_neighbor_cells", "adf_pairs_histogram"):
         assert (PORT / "csrc" / f"{kernel}.cu").exists()
     for package, modules in {
-        "file_io": ("native_parser", "tabular", "lammps_dump", "lammps_flux"),
-        "transformations": ("base", "coordinate_transforms", "flux_transforms", "registry"),
-        "ops": ("msd", "correlation"),
+        "file_io": ("native_parser", "tabular", "lammps_dump", "lammps_flux", "extxyz", "gro",
+                    "trr", "dcd", "chemfiles_io", "chemfiles_read"),
+        "transformations": ("base", "coordinate_transforms", "flux_transforms", "registry",
+                            "map_molecules"),
+        "graph": ("molecular_graph", "smiles"),
+        "utils": ("molecule",),
+        "ops": ("msd", "correlation", "geometry"),
         "calculators": ("einstein_diffusion_coefficients", "green_kubo_diffusion_coefficients",
                         "post_processing", "system_calculators"),
         "data": ("form_factors",),
@@ -67,7 +71,8 @@ def test_the_check_catches_a_jax_import():
     tree = ast.parse(
         "import os\nimport jax.numpy as jnp\nfrom lammps_analysis_tpu.ops import rdf\n"
         "from .ops import rdf_kernel\nimport importlib\nimportlib.import_module('jax')\n"
+        "import networkx as nx\n"
     )
     assert [name for _, name in _imports(tree) if _forbidden(name)] == [
-        "jax.numpy", "lammps_analysis_tpu.ops", "jax",
+        "jax.numpy", "lammps_analysis_tpu.ops", "networkx", "jax",
     ]

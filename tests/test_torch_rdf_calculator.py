@@ -139,7 +139,7 @@ def test_port_rdf_cache_and_persistence(tmp_path):
 def test_port_refuses_missing_gpu_and_files(tmp_path):
     pos, n_na, n_cl, box, kw = _random_case()
     exp = _project("lammps_analysis_tpu_torch", tmp_path, pos, n_na, n_cl, box).experiments["e"]
-    with pytest.raises(NotImplementedError, match="reader is not ported yet"):
+    with pytest.raises(FileNotFoundError):  # the extxyz reader takes the suffix now
         exp.add_data(tmp_path / "traj.xyz")
     with pytest.raises(AttributeError, match="not .*ported|later slices"):
         exp.run.EinsteinDistinctDiffusionCoefficients

@@ -244,14 +244,15 @@ def test_registry_store_aware_choice_matches_jax(tmp_path, props):
 
 
 def test_registry_refuses_unported_producers():
-    """Every flux property has its producer now; ``MolecularMap``, not
-    ported yet, is refused by the run hub with its ROADMAP item."""
+    """Every flux property has its producer now, and the run hub serves
+    ``MolecularMap`` as the JAX package's does; a property no
+    transformation produces has no producer."""
     from lammps_analysis_tpu_torch.experiment.run import RunComputation
-    from lammps_analysis_tpu_torch.transformations import IonicCurrent
+    from lammps_analysis_tpu_torch.transformations import ALL_TRANSFORMATIONS, IonicCurrent
 
     assert isinstance(transformation_for_property("Ionic_Current"), IonicCurrent)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        RunComputation().MolecularMap
+    assert ALL_TRANSFORMATIONS["MolecularMap"].__name__ == "MolecularMap"
+    assert callable(RunComputation().MolecularMap)
     assert transformation_for_property("Forces") is None
     assert isinstance(transformation_for_property("Unwrapped_Positions"), CoordinateUnwrapper)
 
@@ -290,8 +291,8 @@ def test_hub_runs_transformations_like_jax(tmp_path):
     np.testing.assert_allclose(ours["Velocities_From_Positions"],
                                ref["Velocities_From_Positions"], rtol=1e-5, atol=1e-3)
     np.testing.assert_allclose(ours["Positions"], ref["Positions"], rtol=0, atol=1e-5)
-    from lammps_analysis_tpu_torch import Project
+    from lammps_analysis_tpu_torch import Molecule, Project
 
     exp = Project(name="p", storage_path=tmp_path / "lammps_analysis_tpu_torch").experiments["e"]
-    with pytest.raises(NotImplementedError, match="MolecularMap is not in the PyTorch port"):
-        exp.run.MolecularMap
+    with pytest.raises(ValueError, match="needs species"):  # the JAX package's error
+        exp.run.MolecularMap(molecules=[Molecule("water", smiles="O", cutoff=1.2)])
