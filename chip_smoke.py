@@ -7,11 +7,12 @@ Run from the repository root on a machine with an NVIDIA Hopper card:
 
 Phases, one line each (any failure raises and the exit code is not 0):
 
-0. environment: torch and CUDA versions, the card's name, compute capability
-   and power limit, and which optional packages import (for the record: the
-   port's main path needs none of them);
+0. environment: torch and CUDA versions, the card's name, compute capability,
+   ``torch.cuda.device_count()`` and power limit, and which optional packages
+   import (for the record: the port's main path needs none of them);
 1. build: nvcc compiles ``lammps_analysis_tpu_torch/csrc/*.cu`` for sm_90a,
-   one nvcc per source, side by side;
+   one nvcc per source, side by side; g++ builds the table parser and the
+   native CPU SDF kernel (``native/sdf_kernel.cpp``, the SDF's bar);
 2. kernel vs plain, each kernel and its plain torch version on the same
    seeded inputs on the card, with the kernel's device time (``torch.profiler``,
    after a warm-up call), the plain version's time (CUDA events around
@@ -48,7 +49,25 @@ Phases, one line each (any failure raises and the exit code is not 0):
      the stored arrays on the CPU (``tests/torch_dumps.py``, the tests'
      tolerance), slabs and transformation on the card, FFT and reduction
      kernels in the trace, cache hits, and card == CPU on a small dump
-     (parsed arrays identical, series within the transport tolerance);
+     (parsed arrays identical, series within the transport tolerance); with
+     ``config.fuse_streaming`` and the unwrap dropped, a forced Einstein call
+     unwraps each slab on the card, stores nothing and equals the
+     materialised call float for float;
+   * ``[3 distinct]`` the distinct diffusion pair on the same experiment
+     (range 200): Einstein and Green-Kubo for Na_Na, Na_Cl and Cl_Cl on the
+     card, every series held to float64 bilinear direct sums of the stored
+     arrays (``tests/torch_dumps.py``), the Einstein D(Na_Na), D(Cl_Cl)
+     within 3 % of -(1 - 1/N) sigma^2 / (2 dt) (MDSuite's definition: the
+     self term dominates) and |D(Na_Cl)| under 1 % of sigma^2 / (2 dt), the
+     GK |D(Na_Cl)| under 2 % of |D(Na_Na)|, then Nernst-Einstein with
+     ``corrected=True``, which runs the distinct pair itself;
+   * ``[3 sdf]`` the spatial distribution function with its defaults on the
+     ``[3 main]`` ideal gas, Na-Cl and Na-Na: tiles on the card, counts held
+     to the native CPU kernel (totals within 0.01 %, summed bin differences
+     within max(4, 1e-4 x the total)), the total within 1 % of the ideal
+     gas's pairs in the shell, the theta marginal within 5 sigma of its
+     cos-difference shares, the peak device memory a pair of a tile within
+     ``PEAK_BYTES_PER_PAIR``;
    * ``[3 post]`` the RDF post-processing (coordination numbers, potential
      of mean force, Kirkwood-Buff integrals, structure factor) over the
      ``[3 main]`` RDF that K1 computed (the ideal gas's coordination number
@@ -88,7 +107,8 @@ Phases, one line each (any failure raises and the exit code is not 0):
    the conductivity path each system calculator and each flux
    transformation (re-run), and the flux log's parse rate; for the water
    path ``MolecularMap`` (re-run), the molecular Einstein and RDF and the
-   ADF, ``MolecularMap``'s layer spans and the readers' parse rates.
+   ADF, ``MolecularMap``'s layer spans and the readers' parse rates; the
+   fused Einstein, both distinct classes and the SDF (Na-Cl, Na-Na).
 
 ``--walls`` runs only the forced-call medians (the transport path's too)
 and the angle kernel's one-frame launch, for an A/B of two checkouts on one
@@ -128,6 +148,7 @@ import torch_dumps  # noqa: E402
 import torch_water  # noqa: E402
 
 CSRC = "lammps_analysis_tpu_torch/csrc/"
+NATIVE_SDF = pathlib.Path(__file__).resolve().parent / "native" / "sdf_kernel.cpp"
 REPLACES = {
     "rdf_histogram": "lammps_analysis_tpu/ops/pallas_rdf.py:85",
     "adf_neighbor_cells": "lammps_analysis_tpu/ops/pallas_adf.py:221",
@@ -212,7 +233,8 @@ def environment() -> str:
     phase(
         "0 env",
         f"python {sys.version.split()[0]}, torch {torch.__version__}, "
-        f"CUDA {torch.version.cuda}, {name}, compute capability {cap}",
+        f"CUDA {torch.version.cuda}, {name}, compute capability {cap}, "
+        f"torch.cuda.device_count() {torch.cuda.device_count()}",
     )
     if cap != (9, 0):
         raise RuntimeError(f"the kernels are built for sm_90a; this card is {cap}")
@@ -249,6 +271,40 @@ def build() -> None:
     t0 = time.perf_counter()
     parser = native_parser.build()
     phase("1 build", f"table parser {parser.name} in {time.perf_counter() - t0:.1f} s (g++)")
+    t0 = time.perf_counter()
+    bar = native_parser.build(NATIVE_SDF)
+    phase("1 build", f"native SDF bar {bar.name} in {time.perf_counter() - t0:.1f} s (g++)")
+
+
+def native_sdf():
+    """The native CPU SDF kernel (``native/sdf_kernel.cpp``, built into the
+    port's ``_build/`` like the table parser) as ``fn(pos_a, pos_b, box, r_min,
+    r_max, n_bins, same) -> (n_bins, n_bins) uint64 counts``: the bar the
+    calculator is held to, not a route of it."""
+    import ctypes
+
+    from lammps_analysis_tpu_torch.file_io import native_parser
+
+    lib = ctypes.CDLL(str(native_parser.build(NATIVE_SDF)))
+    lib.sdf_hist_f32.restype = ctypes.c_int64
+    f32 = ctypes.POINTER(ctypes.c_float)
+    lib.sdf_hist_f32.argtypes = [f32, f32, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64, f32,
+                                 ctypes.c_float, ctypes.c_float, ctypes.c_int32, ctypes.c_int32,
+                                 ctypes.POINTER(ctypes.c_uint64)]
+
+    def run(pos_a, pos_b, box, r_min, r_max, n_bins, same):
+        pa = np.ascontiguousarray(pos_a, np.float32)
+        pb = np.ascontiguousarray(pos_b, np.float32)
+        box = np.ascontiguousarray(box, np.float32)
+        out = np.zeros((n_bins, n_bins), np.uint64)
+        rc = lib.sdf_hist_f32(pa.ctypes.data_as(f32), pb.ctypes.data_as(f32), pa.shape[0], pa.shape[1],
+                              pb.shape[1], box.ctypes.data_as(f32), r_min, r_max, n_bins, int(same),
+                              out.ctypes.data_as(ctypes.POINTER(ctypes.c_uint64)))
+        if rc != 0:
+            raise RuntimeError(f"native SDF kernel returned {rc}")
+        return out
+
+    return run
 
 
 def make_case(counts, n_frames, box, seed, device):
@@ -830,6 +886,7 @@ def main_path(card: str) -> tuple[int, dict]:
         phase("3 post", f"CN, POMF, KBI and S(q) over the [3 main] RDF (K1, 64 frames x 10240 atoms) "
               f"in {post_s * 1e3:.1f} ms: every series finite, CN at 19.9 A within {worst:.3%} of the "
               "ideal gas's rho 4/3 pi r^3 (2 % allowed)")
+        sdf_path(exp, card)
 
     # the same path on a small input, on the card and on the CPU
     small = dict(counts=[300, 200], n_frames=10, box=15.0)
@@ -850,6 +907,83 @@ def main_path(card: str) -> tuple[int, dict]:
     phase("3 post", "small input: CN, POMF, KBI and S(q) of the card's and the CPU's RDF identical")
     post_lattice()
     return launches, profiled
+
+
+def sdf_path(exp, card: str) -> None:
+    """``[3 sdf]``: ``SpatialDistributionFunction`` with its defaults (r 4.0-4.5
+    A, 5 frames from 1-10, 100 x 100 bins) on the ``[3 main]`` ideal gas,
+    Na-Cl and Na-Na: tiles on the card, counts held to the native CPU kernel,
+    the total to the ideal gas's pair count in the shell and the theta
+    marginal to its cos-difference shares; the peak device memory a pair of a
+    tile against ``PEAK_BYTES_PER_PAIR``; ``[4 profile]`` forced-call medians."""
+    from lammps_analysis_tpu_torch.calculators import spatial_distribution_function as sdf_module
+    from lammps_analysis_tpu_torch.database.trajectory_store import TrajectoryStore
+
+    native = native_sdf()
+    n_na, _ = BENCH["counts"]
+    box = BENCH["box"][0]
+    frames = np.unique(np.linspace(1, 10, 5, dtype=int))
+    r_min, r_max, n_bins = 4.0, 4.5, 100
+    shell = 4 / 3 * np.pi * (r_max**3 - r_min**3)
+    edges = np.linspace(0.0, np.pi, n_bins + 1)
+    shares = (np.cos(edges[:-1]) - np.cos(edges[1:])) / 2
+    arrays = exp.store.load(["Na/Positions", "Cl/Positions"], frames=frames)
+    calculator = sdf_module.SpatialDistributionFunction(exp)
+    for label, species in (("Na-Cl", ["Na", "Cl"]), ("Na-Na", ["Na"])):
+        sp_b = species[-1]
+        n_b = exp.species[sp_b].n_particles
+        a_block, fpb = calculator.tiles(n_na, n_b, len(frames))
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        with Spy(sdf_module, "sdf_tile", sync=True) as tiles:
+            t0 = time.perf_counter()
+            result = exp.run.SpatialDistributionFunction(species=species, plot=False)
+            wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() - base
+        per_pair = peak / (fpb * a_block * n_b)
+        if tiles.devices != {"cuda"} or per_pair > calculator.PEAK_BYTES_PER_PAIR:
+            raise RuntimeError(f"sdf {label}: tiles on {tiles.devices}, {per_pair:.1f} bytes a pair "
+                               f"(PEAK_BYTES_PER_PAIR {calculator.PEAK_BYTES_PER_PAIR})")
+        hist = np.asarray(result["System"]["sdf"])
+        sphere = np.asarray(result["System"]["sphere"])
+        if hist.shape != (n_bins, n_bins) or sphere.shape != (n_bins, n_bins, 3) \
+                or not np.isfinite(hist).all():
+            raise RuntimeError(f"sdf {label}: histogram {hist.shape}, sphere {sphere.shape}")
+        t0 = time.perf_counter()
+        bar = native(arrays["Na/Positions"], arrays[f"{sp_b}/Positions"], [box] * 3, r_min, r_max,
+                     n_bins, sp_b == "Na")
+        native_s = time.perf_counter() - t0
+        diff_total, diff_bins = torch_dumps.assert_counts_close(hist, bar)
+        pairs = n_na * (n_na - 1) if sp_b == "Na" else n_na * n_b
+        expected = len(frames) * pairs / box**3 * shell
+        total = hist.sum()
+        marginal = hist.sum(axis=1)
+        z = np.abs(marginal - total * shares) / np.sqrt(total * shares)
+        if abs(total / expected - 1) > 0.01 or z.max() > 5:
+            raise RuntimeError(f"sdf {label}: {total:.0f} pairs in the shell against the ideal gas's "
+                               f"{expected:.0f}, theta marginal off its shares by {z.max():.2f} sigma")
+        phase("3 sdf", f"{label}: {total:.0f} pairs in 4.0-4.5 A over {len(frames)} frames, "
+              f"{100 * (total / expected - 1):+.3f} % of the ideal gas's {expected:.0f}; theta "
+              f"marginal within {z.max():.2f} sigma of its shares; = native CPU kernel: totals differ "
+              f"by {diff_total:.0f}, bins by {diff_bins:.0f} in all; {tiles.calls} tile(s) of {fpb} "
+              f"frame(s) x {a_block} x {n_b} on {tiles.devices}, peak device memory {peak / 2**30:.3f} "
+              f"GiB ({per_pair:.1f} bytes a pair, PEAK_BYTES_PER_PAIR "
+              f"{calculator.PEAK_BYTES_PER_PAIR}); wall {wall * 1e3:.3f} ms, native bar "
+              f"{native_s * 1e3:.3f} ms on the host")
+
+        def forced(species=species):
+            return exp.run.SpatialDistributionFunction(species=species, plot=False, force=True)
+
+        size = f"SDF {label} {len(frames)} frames x {sum(BENCH['counts'])} atoms, forced"
+        forced_calls(size, forced)
+        trace = profile_call(size, forced)
+        span_call(size, forced, {
+            "store reads": Spy(TrajectoryStore, "load"),
+            "tiles on the device": Spy(sdf_module, "sdf_tile", sync=True),
+        })
+        phase("3 sdf", f"{label}: device time {trace['device_ms'] / len(frames):.3f} ms a frame, native "
+              f"CPU kernel {native_s * 1e3 / len(frames):.3f} ms a frame, on {card}")
 
 
 def post_process(exp, rdf) -> dict:
@@ -1124,51 +1258,58 @@ class Capture:
     __exit__ = Spy.__exit__
 
 
+def span_call(label: str, fn, spans: dict) -> None:
+    """One call of ``fn`` with each span of ``spans`` (name -> ``Spy``) timed
+    (host wall, device work synchronised at the end of each span where the
+    spy syncs) and the results DB's calls (lookups, deletes, stores and the
+    experiment's attributes); the rest of the call is the calculator's own
+    host code."""
+    from lammps_analysis_tpu_torch.database.results_db import ResultsDatabase
+
+    db_methods = ("find_computation", "store_computation", "delete_computations",
+                  "get_attribute", "set_attribute")
+    with contextlib.ExitStack() as stack:
+        db = [stack.enter_context(Spy(ResultsDatabase, m)) for m in db_methods]
+        for spy in spans.values():
+            stack.enter_context(spy)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        total = time.perf_counter() - t0
+    db_ms = sum(spy.seconds for spy in db) * 1e3
+    phase("4 profile", f"{label}, layer spans: {total * 1e3:.3f} ms in all; " + "; ".join(
+        f"{name} {spy.seconds * 1e3:.3f} ms in {spy.calls} call(s)" for name, spy in spans.items()
+    ) + f"; results DB {db_ms:.3f} ms in {sum(spy.calls for spy in db)} call(s)")
+
+
 def layer_spans(exp, einstein_with_unwrap, gk) -> None:
-    """One forced call of each transport calculator with every layer timed
-    (host wall, device work synchronised at the end of each span): store
-    reads and writes, the unwrap, the wait for the next slab (store read,
-    pin and host-to-device copy not hidden behind compute), the MSD comb or
-    the ACF, the host fit, the results DB (lookups, deletes, stores and the
-    experiment's attributes); the rest is the calculators' own host code."""
+    """One forced call of each transport calculator with every layer timed:
+    store reads and writes, the unwrap, the wait for the next slab (store
+    read, pin and host-to-device copy not hidden behind compute), the MSD
+    comb or the ACF, the host fit, the results DB."""
     from lammps_analysis_tpu_torch.calculators import (
         base as calc_base,
         einstein_diffusion_coefficients as einstein_module,
         green_kubo_diffusion_coefficients as gk_module,
     )
-    from lammps_analysis_tpu_torch.database.results_db import ResultsDatabase
     from lammps_analysis_tpu_torch.ops import correlation, msd
     from lammps_analysis_tpu_torch.database.trajectory_store import TrajectoryStore
     from lammps_analysis_tpu_torch.transformations import CoordinateUnwrapper
 
-    db_methods = ("find_computation", "store_computation", "delete_computations",
-                  "get_attribute", "set_attribute")
     for label, fn, device_op, fit in (
         ("Einstein with the unwrap re-run", einstein_with_unwrap,
          (msd, "windowed_msd_sum"), (einstein_module, "fit_einstein_curve")),
         ("GK", gk, (correlation, "windowed_acf_sum"), (gk_module, "cumulative_trapezoid")),
     ):
-        with contextlib.ExitStack() as stack:
-            spans = {
-                "store reads (all threads)": Spy(TrajectoryStore, "load"),
-                "store dataset creation": Spy(TrajectoryStore, "ensure_dataset"),
-                "store writes": Spy(TrajectoryStore, "append"),
-                "unwrap on the device": Spy(CoordinateUnwrapper, "transform_batch", sync=True),
-                "waits for the next slab": Spy(calc_base, "prefetch_to_device"),
-                f"{device_op[1]} on the device": Spy(*device_op, sync=True),
-                f"host {fit[1]}": Spy(*fit),
-            }
-            db = [stack.enter_context(Spy(ResultsDatabase, m)) for m in db_methods]
-            for spy in spans.values():
-                stack.enter_context(spy)
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            fn()
-            total = time.perf_counter() - t0
-        db_ms = sum(spy.seconds for spy in db) * 1e3
-        phase("4 profile", f"{label}, layer spans: {total * 1e3:.3f} ms in all; " + "; ".join(
-            f"{name} {spy.seconds * 1e3:.3f} ms in {spy.calls} call(s)" for name, spy in spans.items()
-        ) + f"; results DB {db_ms:.3f} ms in {sum(spy.calls for spy in db)} call(s)")
+        span_call(label, fn, {
+            "store reads (all threads)": Spy(TrajectoryStore, "load"),
+            "store dataset creation": Spy(TrajectoryStore, "ensure_dataset"),
+            "store writes": Spy(TrajectoryStore, "append"),
+            "unwrap on the device": Spy(CoordinateUnwrapper, "transform_batch", sync=True),
+            "waits for the next slab": Spy(calc_base, "prefetch_to_device"),
+            f"{device_op[1]} on the device": Spy(*device_op, sync=True),
+            f"host {fit[1]}": Spy(*fit),
+        })
 
 
 def transport_main_path(card: str) -> dict:
@@ -1189,7 +1330,8 @@ def transport_main_path(card: str) -> dict:
         reader = LAMMPSDumpFile(dump)
         n_parsed = sum(chunk.chunk_size for chunk in reader.get_configurations_generator())
         parse_s = time.perf_counter() - t0
-        exp, ingest_s = ingest_dump(root, dump)
+        # the temperature serves Nernst-Einstein in [3 distinct]
+        exp, ingest_s = ingest_dump(root, dump, temperature=FLUX["temperature"])
         species = {k: v.n_particles for k, v in exp.species.items()}
         if (n_parsed, exp.number_of_configurations) != (c["n_frames"],) * 2 or species != {
             "Na": n_na, "Cl": n_cl
@@ -1303,6 +1445,8 @@ def transport_main_path(card: str) -> dict:
         if "fft" not in names_gk or "reduce" not in names_gk or "reduce" not in names_e:
             raise RuntimeError("transport: the trace lacks device FFT or reduction kernels")
         phase("3 transport", "device FFT and reduction kernels in the trace")
+        fused_einstein(exp, einstein, kw, size, walls, traces)
+        distinct_path(exp, dt)
 
     # the same path from a small dump, on the card and on the CPU
     outputs = {}
@@ -1332,6 +1476,166 @@ def transport_main_path(card: str) -> dict:
     phase("3 transport", "small dump (300 + 200 atoms, 60 frames): parsed arrays identical, "
           "Einstein and GK on the card = CPU within the transport tolerance")
     return dict(walls=walls, traces=traces, launches=launches, einstein=einstein, gk=gk)
+
+
+def fused_einstein(exp, einstein, kw, size, walls, traces) -> None:
+    """The fused unwrap stream on the ``[3 transport]`` experiment: with
+    ``config.fuse_streaming`` and both ``Unwrapped_Positions`` dropped, a forced
+    Einstein call unwraps each slab on the card, writes nothing and gives the
+    materialised call's result, every float equal; then its forced-call median
+    and trace beside the two materialised ones. The unwrap is stored again
+    after it."""
+    from lammps_analysis_tpu_torch import config
+    from lammps_analysis_tpu_torch.transformations import CoordinateUnwrapper
+
+    config.fuse_streaming = True
+    try:
+        for sp in ("Na", "Cl"):
+            exp.store.drop(f"{sp}/Unwrapped_Positions")
+        with Spy(CoordinateUnwrapper, "transform_batch") as unwrap, \
+                Spy(CoordinateUnwrapper, "run_transformation") as runs:
+            t0 = time.perf_counter()
+            fused = exp.run.EinsteinDiffusionCoefficients(force=True, **kw)
+            fused_s = time.perf_counter() - t0
+        left = [sp for sp in ("Na", "Cl") if exp.store.check_existence(f"{sp}/Unwrapped_Positions")]
+        if fused.data_dict != einstein.data_dict or left or runs.calls or unwrap.devices != {"cuda"}:
+            raise RuntimeError(f"transport: the fused Einstein call differs from the materialised one "
+                               f"({fused.data_dict == einstein.data_dict}), stored {left}, ran the "
+                               f"transformation {runs.calls} time(s), unwrapped on {unwrap.devices}")
+        phase("3 transport", "fused unwrap stream (config.fuse_streaming, Unwrapped_Positions dropped): "
+              f"{unwrap.calls} slab unwrap(s) on {unwrap.devices}, no transformation run, nothing "
+              f"stored; D Na {float(fused['Na']['diffusion_coefficient'])!r}, Cl "
+              f"{float(fused['Cl']['diffusion_coefficient'])!r} == the materialised call's, every float of "
+              f"the result equal; {fused_s * 1e3:.3f} ms")
+
+        def forced_fused():
+            return exp.run.EinsteinDiffusionCoefficients(force=True, **kw)
+
+        walls["Einstein fused"] = forced_calls(f"Einstein fused unwrap {size}, forced", forced_fused)
+        traces["Einstein fused"] = profile_call(f"Einstein fused unwrap {size}, forced", forced_fused)
+    finally:
+        config.fuse_streaming = False
+    exp.run.CoordinateUnwrapper()
+
+
+def distinct_path(exp, dt) -> None:
+    """``[3 distinct]``: both distinct classes on the ``[3 transport]``
+    experiment at data_range 200, correlation_time 1, for Na_Na, Na_Cl and
+    Cl_Cl: every series held to the float64 bilinear direct sums of the
+    stored arrays (``tests/torch_dumps.py``), the Einstein pair to the walk,
+    then Nernst-Einstein's ``corrected=True`` with the distinct pair run for
+    it; ``[4 profile]`` forced-call medians and traces."""
+    from lammps_analysis_tpu_torch.calculators import (
+        base as calc_base,
+        distinct_diffusion_coefficients as distinct_module,
+    )
+    from lammps_analysis_tpu_torch.database.trajectory_store import TrajectoryStore
+    from lammps_analysis_tpu_torch.ops import correlation, msd
+
+    c = TRANSPORT
+    data_range = c["data_range"]
+    kw = dict(data_range=data_range, correlation_time=1, plot=False)
+    with Spy(msd, "windowed_msd_sum") as comb, Spy(correlation, "windowed_acf_sum") as acf, \
+            Spy(correlation, "cross_correlation_biased") as cross:
+        t0 = time.perf_counter()
+        einstein = exp.run.EinsteinDistinctDiffusionCoefficients(**kw)
+        einstein_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        gk = exp.run.GreenKuboDistinctDiffusionCoefficients(**kw)
+        gk_s = time.perf_counter() - t0
+    if any(spy.devices != {"cuda"} for spy in (comb, acf, cross)):
+        raise RuntimeError(f"distinct: self MSD on {comb.devices}, self ACF on {acf.devices}, cross "
+                           f"correlation on {cross.devices}; all must be cuda")
+    phase("3 distinct", f"Einstein pair {einstein_s * 1e3:.3f} ms ({comb.calls} self MSD slab(s) on "
+          f"{comb.devices}), GK pair {gk_s * 1e3:.3f} ms ({acf.calls} self ACF slab(s), {cross.calls} "
+          f"cross-correlation batch(es) on {cross.devices}); {c['n_frames']} frames x "
+          f"{sum(c['counts'])} atoms, range {data_range}")
+
+    t0 = time.perf_counter()
+    u = exp.units
+    frame = exp.time_step * exp.sample_rate
+    arrays = exp.store.load([f"{sp}/{p}" for sp in ("Na", "Cl")
+                             for p in ("Unwrapped_Positions", "Velocities")])
+    direct = {}
+    for pair in ("Na_Na", "Na_Cl", "Cl_Cl"):
+        a, b = pair.split("_")
+        msd_d = torch_dumps.distinct_series_direct(
+            arrays[f"{a}/Unwrapped_Positions"], arrays[f"{b}/Unwrapped_Positions"], data_range, 1,
+            a == b, "msd", u.length)
+        vacf_d, d_gk = torch_dumps.distinct_series_direct(
+            arrays[f"{a}/Velocities"], arrays[f"{b}/Velocities"], data_range, 1, a == b, "vacf",
+            u.length, u.time, frame)
+        direct[pair] = dict(msd=msd_d, vacf=vacf_d, d_gk=d_gk)
+    errors = {}
+    for key, result in (("msd", einstein), ("vacf", gk)):
+        scale = max(np.abs(direct[p][key]).max() for p in ("Na_Na", "Cl_Cl"))
+        errors[key] = max(np.abs(np.asarray(result[p][key]) - direct[p][key]).max() / scale
+                          for p in direct)
+        for pair, values in direct.items():
+            np.testing.assert_allclose(result[pair][key], values[key], rtol=1e-5, atol=1e-6 * scale,
+                                       err_msg=f"distinct {pair} {key}")
+    d_scale = max(abs(direct[p]["d_gk"]) for p in ("Na_Na", "Cl_Cl"))
+    d_error = max(abs(gk[p]["diffusion_coefficient"] - direct[p]["d_gk"]) for p in direct) / d_scale
+    if d_error > 1e-5:
+        raise RuntimeError(f"distinct: GK D {d_error:.3e} x the same-species D off the float64 sum")
+    phase("3 distinct", f"MSD and VACF series of Na_Na, Na_Cl, Cl_Cl = float64 bilinear direct sums on "
+          f"the CPU: largest error {errors['msd']:.3e} (MSD), {errors['vacf']:.3e} (VACF) x the "
+          f"same-species series' max (1e-6 + rtol 1e-5 allowed); GK D within {d_error:.3e} x the "
+          f"same-species |D|; {time.perf_counter() - t0:.1f} s")
+
+    walk = c["sigma"] ** 2 / (2 * dt) * 1e-8  # A^2/ps -> m^2/s
+    d_e = {p: float(einstein[p]["diffusion_coefficient"]) for p in direct}
+    d_g = {p: float(gk[p]["diffusion_coefficient"]) for p in direct}
+    for pair in ("Na_Na", "Cl_Cl"):
+        n = exp.species[pair.split("_")[0]].n_particles
+        expected = -(1 - 1 / n) * walk
+        phase("3 distinct", f"{pair}: Einstein D {d_e[pair]:.6e} m^2/s, -(1 - 1/N) sigma^2/(2 dt) "
+              f"{expected:.6e} ({100 * (d_e[pair] / expected - 1):+.3f} %); GK D {d_g[pair]:.6e}")
+        if abs(d_e[pair] / expected - 1) > 0.03:
+            raise RuntimeError(f"distinct: {pair} Einstein D off -(1 - 1/N) sigma^2/(2 dt) by more than 3 %")
+    phase("3 distinct", f"Na_Cl: Einstein D {d_e['Na_Cl']:.6e} ({100 * abs(d_e['Na_Cl']) / walk:.4f} % of "
+          f"sigma^2/(2 dt), 1 % allowed), GK D {d_g['Na_Cl']:.6e} ({100 * abs(d_g['Na_Cl'] / d_g['Na_Na']):.4f} "
+          "% of |GK D(Na_Na)|, 2 % allowed)")
+    if abs(d_e["Na_Cl"]) > 0.01 * walk or abs(d_g["Na_Cl"]) > 0.02 * abs(d_g["Na_Na"]):
+        raise RuntimeError("distinct: the Na_Cl cross term is not near zero")
+
+    exp.set_charge("Na", 1.0)
+    exp.set_charge("Cl", -1.0)
+    t0 = time.perf_counter()
+    ne = exp.run.NernstEinsteinIonicConductivity(corrected=True, plot=False)
+    ne_s = time.perf_counter() - t0
+    values = ne["System"]
+    if ne.args.get("distinct_source") != "EinsteinDistinctDiffusionCoefficients" or not np.isfinite(
+            values["corrected_nernst_einstein_ionic_conductivity"]):
+        raise RuntimeError(f"distinct: corrected Nernst-Einstein gave {values} with args {ne.args}")
+    phase("3 distinct", f"Nernst-Einstein corrected=True (the Einstein self and distinct pairs run for "
+          f"it, data_range 100): {values['nernst_einstein_ionic_conductivity']:.6e} S/m, corrected "
+          f"{values['corrected_nernst_einstein_ionic_conductivity']:.6e} S/m; {ne_s * 1e3:.3f} ms")
+
+    size = f"{c['n_frames']} frames x {sum(c['counts'])} atoms, range {data_range}"
+    for label, name in (("EinsteinDistinct", "EinsteinDistinctDiffusionCoefficients"),
+                        ("GreenKuboDistinct", "GreenKuboDistinctDiffusionCoefficients")):
+        def forced(name=name):
+            return getattr(exp.run, name)(force=True, **kw)
+
+        t0 = time.perf_counter()
+        forced()
+        phase("3 distinct", f"{label}: one forced call {(time.perf_counter() - t0) * 1e3:.3f} ms")
+        forced_calls(f"{label} {size}, forced", forced)
+        profile_call(f"{label} {size}, forced", forced)
+        spans = {
+            "store reads (all threads)": Spy(TrajectoryStore, "load"),
+            "waits for the next slab": Spy(calc_base, "prefetch_to_device"),
+            "window gathers on the device": Spy(distinct_module._DistinctPair, "_windows", sync=True),
+        }
+        if label == "EinsteinDistinct":
+            spans["self MSD on the device"] = Spy(msd, "windowed_msd_sum", sync=True)
+            spans["host fit_einstein_curve"] = Spy(distinct_module, "fit_einstein_curve")
+        else:
+            spans["self ACF on the device"] = Spy(correlation, "windowed_acf_sum", sync=True)
+            spans["cross-correlation FFTs on the device"] = Spy(
+                correlation, "cross_correlation_biased", sync=True)
+        span_call(f"{label} {size}, forced", forced, spans)
 
 
 def flux_dump(root, counts, n_frames, seed):

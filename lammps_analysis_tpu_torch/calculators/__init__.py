@@ -1,14 +1,18 @@
 """Calculators: observables computed from stored trajectories.
 
-The port carries the radial and angular distribution functions, the RDF
-post-processing (coordination numbers, potential of mean force,
-Kirkwood-Buff integrals, structure factor), the Einstein and Green-Kubo
-self-diffusion coefficients, Nernst-Einstein, and the seven system
-(conductivity, thermal conductivity, viscosity) calculators; the JAX
-package's other calculators are later slices (see ROADMAP.md).
+Every calculator of the JAX package: the radial and angular distribution
+functions, the RDF post-processing (coordination numbers, potential of mean
+force, Kirkwood-Buff integrals, structure factor), the Einstein and
+Green-Kubo self- and distinct diffusion coefficients, Nernst-Einstein, the
+seven system (conductivity, thermal conductivity, viscosity) calculators and
+the spatial distribution function.
 """
 from .angular_distribution_function import AngularDistributionFunction  # noqa: F401
 from .base import Calculator, TrajectoryCalculator  # noqa: F401
+from .distinct_diffusion_coefficients import (  # noqa: F401
+    EinsteinDistinctDiffusionCoefficients,
+    GreenKuboDistinctDiffusionCoefficients,
+)
 from .einstein_diffusion_coefficients import EinsteinDiffusionCoefficients  # noqa: F401
 from .green_kubo_diffusion_coefficients import GreenKuboDiffusionCoefficients  # noqa: F401
 from .post_processing import (  # noqa: F401
@@ -19,6 +23,7 @@ from .post_processing import (  # noqa: F401
     StructureFactor,
 )
 from .radial_distribution_function import RadialDistributionFunction  # noqa: F401
+from .spatial_distribution_function import SpatialDistributionFunction  # noqa: F401
 from .system_calculators import (  # noqa: F401
     EinsteinHelfandIonicConductivity,
     EinsteinHelfandThermalConductivity,
@@ -36,6 +41,8 @@ ALL_CALCULATORS = {
         AngularDistributionFunction,
         EinsteinDiffusionCoefficients,
         GreenKuboDiffusionCoefficients,
+        EinsteinDistinctDiffusionCoefficients,
+        GreenKuboDistinctDiffusionCoefficients,
         CoordinationNumbers,
         PotentialOfMeanForce,
         KirkwoodBuffIntegral,
@@ -48,5 +55,6 @@ ALL_CALCULATORS = {
         EinsteinHelfandThermalKinaci,
         GreenKuboViscosity,
         GreenKuboViscosityFlux,
+        SpatialDistributionFunction,
     )
 }

@@ -14,9 +14,12 @@ series under ``Observables`` for ``system_property`` calculators), and the
 windowed stream of the correlation calculators: window-aligned frame slabs,
 split along the atom axis when one window of all atoms exceeds the memory
 budget, loaded in float32 and copied to ``config.device`` one slab ahead. A
-system series streams as ``Observables/<property>`` with one particle. The
-JAX package's fused unwrap stream (``config.fuse_streaming``) and
-multi-species stream are later slices. Plotting is not ported yet.
+system series streams as ``Observables/<property>`` with one particle; the
+distinct diffusion pair streams two species' slabs together
+(``_stream_properties_multi``). With ``config.fuse_streaming`` an
+``Unwrapped_Positions`` stream whose dataset is not materialised is unwrapped
+on the fly from the wrapped positions (``_stream_unwrapped_fused``).
+Plotting is not ported yet.
 """
 
 from __future__ import annotations
@@ -27,12 +30,16 @@ import logging
 from typing import Any, Dict, List, Optional, Union
 
 import numpy as np
+import torch
 
+from ..database.properties import mdsuite_properties as mp
 from ..database.results_db import Computation
 from ..database.trajectory_store import join_path
 from ..memory.planner import BatchPlan
 from ..pipeline.prefetch import prefetch_to_device
+from ..transformations.coordinate_transforms import CoordinateUnwrapper
 from ..transformations.registry import transformation_for_property
+from ..utils.config import config, get_device
 from ..utils.constants import DatasetKeys
 from ..utils.progress import progress_iter
 
@@ -219,14 +226,7 @@ class TrajectoryCalculator(Calculator):
             return
         prop = self.loaded_property.name
         exp = self.experiment
-
-        def complete(path):
-            # present AND covering every configuration (appended data must
-            # re-trigger the producing transformation)
-            return (
-                exp.store.check_existence(path)
-                and exp.store.get_cursor(path) >= exp.number_of_configurations
-            )
+        complete = self._complete
 
         if self.system_property:
             if complete(join_path(DatasetKeys.OBSERVABLES, prop)):
@@ -242,6 +242,10 @@ class TrajectoryCalculator(Calculator):
         for sp in species or self.args.get("species", []):
             if complete(join_path(sp, prop)):
                 continue
+            if self._fusible_unwrap(sp):
+                # config.fuse_streaming: the stream unwraps the wrapped
+                # positions on the fly, nothing is materialised
+                continue
             producer = transformation_for_property(
                 prop, experiment=exp, species=sp
             )
@@ -251,6 +255,15 @@ class TrajectoryCalculator(Calculator):
                     f"species {sp} and no transformation produces it."
                 )
             producer.run_transformation(exp, [sp])
+
+    def _complete(self, path: str) -> bool:
+        """``path`` is stored and covers every configuration (appended data
+        must re-trigger the producing transformation)."""
+        store = self.experiment.store
+        return (
+            store.check_existence(path)
+            and store.get_cursor(path) >= self.experiment.number_of_configurations
+        )
 
     # ---------------------------------------------------------- atom selection
     @staticmethod
@@ -287,21 +300,25 @@ class TrajectoryCalculator(Calculator):
             )
         return np.asarray(encoded, dtype=np.int64)
 
+    @staticmethod
+    def _count_selected(sel, n_full: int) -> int:
+        """Atoms a resolved selection (None / slice / index array) keeps of
+        ``n_full``."""
+        if sel is None:
+            return n_full
+        if isinstance(sel, slice):
+            return len(range(*sel.indices(n_full)))
+        return len(sel)
+
     def selected_counts(self, species) -> List[int]:
         """Per-species particle counts after applying ``args['atom_selection']``."""
-        counts = []
-        for sp in species:
-            sel = self.resolve_atom_selection(
-                self.args.get("atom_selection"), sp
+        return [
+            self._count_selected(
+                self.resolve_atom_selection(self.args.get("atom_selection"), sp),
+                self.experiment.entity(sp).n_particles,
             )
-            full = self.experiment.entity(sp).n_particles
-            if sel is None:
-                counts.append(full)
-            elif isinstance(sel, slice):
-                counts.append(len(range(*sel.indices(full))))
-            else:
-                counts.append(len(sel))
-        return counts
+            for sp in species
+        ]
 
     # --------------------------------------------------------------- loading
     def load_concat_positions(self, species, frame_idx, n_pad, dtype):
@@ -443,6 +460,139 @@ class TrajectoryCalculator(Calculator):
             base = np.asarray(sel, dtype=np.int64)
         return list(np.array_split(base, n_groups))
 
+    def _fusible_unwrap(self, species: str) -> bool:
+        """True when this calculator's unwrapped-positions stream is computed
+        on the fly from the wrapped positions.
+
+        Requires ``supports_fused_streaming`` on the calculator,
+        ``config.fuse_streaming``, an absent or incomplete
+        ``Unwrapped_Positions`` dataset (a complete one is cheaper to read)
+        and complete ``Positions``.
+        """
+        if not getattr(self, "supports_fused_streaming", False):
+            return False  # the calculator loads outside _stream_property
+        if not config.fuse_streaming or self.loaded_property is None:
+            return False
+        if self.loaded_property.name != mp.unwrapped_positions.name:
+            return False
+        return not self._complete(
+            join_path(species, mp.unwrapped_positions.name)
+        ) and self._complete(join_path(species, mp.positions.name))
+
+    def _stream_unwrapped_fused(self, species: str, atoms, slabs: list):
+        """Stream ``Positions`` slabs and unwrap them on ``config.device``.
+
+        The unwrap carry (the previous frame's wrapped position and image
+        count) chains across the window-aligned slabs: the carry for slab
+        k+1 is rebuilt from slab k's tensors at the frame just before slab
+        k+1's start, as ``CoordinateUnwrapper.bootstrap_carry`` rebuilds it
+        from the store, so the result equals streaming a materialised
+        ``Unwrapped_Positions`` bit for bit. When ``correlation_time >
+        data_range`` the slabs are disjoint; the unwrap needs every
+        consecutive-frame difference, so each load runs through the next
+        slab's first frame and the gap frames enter the carry without being
+        yielded.
+        """
+        store = self.experiment.store
+        pos_path = join_path(species, mp.positions.name)
+        # (start, yield_stop, load_stop): load through the next slab's start
+        ext = [
+            (start, stop, max(stop, slabs[i + 1][0]) if i + 1 < len(slabs) else stop)
+            for i, (start, stop) in enumerate(slabs)
+        ]
+
+        def load(slab):
+            start, _, load_stop = slab
+            return store.load(
+                [pos_path], frames=slice(start, load_stop), atoms=atoms,
+                dtype=np.float32,
+            )[pos_path]
+
+        unwrapper = CoordinateUnwrapper()
+        box = torch.as_tensor(
+            np.asarray(self.experiment.box_array, dtype=np.float32), device=get_device()
+        )
+        carry = None
+        for i, pos in enumerate(
+            progress_iter(
+                prefetch_to_device(load, ext),
+                desc=f"{self.name} {species} (fused unwrap)",
+                total=len(ext), unit="slab",
+            )
+        ):
+            unwrapped, _ = unwrapper.transform_batch(
+                {mp.positions.name: pos, mp.box_length.name: box}, carry
+            )
+            start, stop, _ = ext[i]
+            if i + 1 < len(ext):
+                j = ext[i + 1][0] - 1 - start
+                carry = (pos[j], torch.round((unwrapped[j] - pos[j]) / box))
+            yield unwrapped[: stop - start]
+
+    def _stream_properties_multi(
+        self,
+        species_list: List[str],
+        prop_name: str,
+        data_range: int,
+        correlation_time: int,
+        with_info: bool = False,
+    ):
+        """Yield ``{species: (T_slab, N, d) tensor}`` over window-aligned slabs.
+
+        The two-species stream of the distinct diffusion pair (JAX package
+        ``base.py:645-734``): each slab loads every distinct species once,
+        honouring per-species ``args['atom_selection']``, and arrives on
+        ``config.device`` one slab ahead as one dict. Slabs are capped at
+        ``MAX_SLAB_BYTES`` divided by the number of distinct paths. An
+        over-budget window splits the atom axis of every species into the
+        same number of contiguous groups, in slab-major order (outer loop
+        frames, inner loop atom groups), so a consumer finishes a slab's
+        windows when its last group arrives: the bilinear cross terms need
+        only the per-slab particle sums, which add across groups. Pass
+        ``with_info=True`` for ``(dict, StreamSlabInfo)`` pairs.
+        """
+        store = self.experiment.store
+        uniq = list(dict.fromkeys(species_list))  # each species loaded once
+        paths = {sp: join_path(sp, prop_name) for sp in uniq}
+        sels = {
+            sp: self.resolve_atom_selection(self.args.get("atom_selection"), sp)
+            for sp in uniq
+        }
+        n_full = {sp: store.get_data_size(paths[sp])[1] for sp in uniq}
+        slabs, n_groups = self._window_stream_plan(
+            paths[uniq[0]], data_range, correlation_time,
+            max_slab_bytes=self.MAX_SLAB_BYTES // len(uniq),
+            n_selected=sum(self._count_selected(sels[sp], n_full[sp]) for sp in uniq),
+        )
+        groups = {sp: self._atom_groups(sels[sp], n_full[sp], n_groups) for sp in uniq}
+
+        def load(item):
+            (start, stop), gi = item
+            return {
+                sp: store.load(
+                    [paths[sp]], frames=slice(start, stop), atoms=groups[sp][gi],
+                    dtype=np.float32,
+                )[paths[sp]]
+                for sp in uniq
+            }
+
+        items = [(slab, gi) for slab in slabs for gi in range(n_groups)]
+        stream = progress_iter(
+            prefetch_to_device(load, items),
+            desc=f"{self.name} {'+'.join(species_list)}/{prop_name}",
+            total=len(items), unit="slab",
+        )
+        for k, data in enumerate(stream):
+            if with_info:
+                si, gi = divmod(k, n_groups)
+                yield data, StreamSlabInfo(
+                    start=slabs[si][0], stop=slabs[si][1],
+                    slab_index=si, n_slabs=len(slabs),
+                    group=gi, n_groups=n_groups,
+                )
+            else:
+                yield data
+
     def _stream_property(
         self, species: str, prop_name: str, data_range: int,
         correlation_time: int, with_info: bool = False,
@@ -452,6 +602,9 @@ class TrajectoryCalculator(Calculator):
         The store read and host-to-device copy of slab k+1 overlap the
         caller's device work on slab k (``prefetch_to_device``). Honors
         ``args['atom_selection']``. Slabs are capped at ``MAX_SLAB_BYTES``.
+        With ``config.fuse_streaming`` an unwrapped-positions stream whose
+        dataset is not materialised is unwrapped on the fly from the wrapped
+        positions (``_stream_unwrapped_fused``).
         When one ``data_range``-frame window of all (selected) atoms exceeds
         the memory budget, the atom axis is split into contiguous minibatches
         and the slab sequence repeats per group (outer loop atoms, inner loop
@@ -459,38 +612,41 @@ class TrajectoryCalculator(Calculator):
         additive across groups; consumers needing per-window reconstruction
         pass ``with_info=True`` to receive ``(tensor, StreamSlabInfo)``.
         """
+        fused = (
+            prop_name == mp.unwrapped_positions.name and self._fusible_unwrap(species)
+        )
         path = join_path(species, prop_name)
+        # the fused stream plans on the wrapped positions (same shape)
+        plan_path = join_path(species, mp.positions.name) if fused else path
         atoms = self.resolve_atom_selection(
             self.args.get("atom_selection"), species
         )
         store = self.experiment.store
-        _, n_full, _ = store.get_data_size(path)
-        if atoms is None:
-            n_sel = n_full
-        elif isinstance(atoms, slice):
-            n_sel = len(range(*atoms.indices(n_full)))
-        else:
-            n_sel = len(atoms)
+        _, n_full, _ = store.get_data_size(plan_path)
         slabs, n_groups = self._window_stream_plan(
-            path, data_range, correlation_time,
-            max_slab_bytes=self.MAX_SLAB_BYTES, n_selected=n_sel,
+            plan_path, data_range, correlation_time,
+            max_slab_bytes=self.MAX_SLAB_BYTES,
+            n_selected=self._count_selected(atoms, n_full),
         )
         groups = self._atom_groups(atoms, n_full, n_groups)
         for gi, g_atoms in enumerate(groups):
+            if fused:
+                inner = self._stream_unwrapped_fused(species, g_atoms, slabs)
+            else:
 
-            def load(slab, _a=g_atoms):
-                start, stop = slab
-                return store.load(
-                    [path], frames=slice(start, stop), atoms=_a,
-                    dtype=np.float32,
-                )[path]
+                def load(slab, _a=g_atoms):
+                    start, stop = slab
+                    return store.load(
+                        [path], frames=slice(start, stop), atoms=_a,
+                        dtype=np.float32,
+                    )[path]
 
-            inner = progress_iter(
-                prefetch_to_device(load, slabs),
-                desc=f"{self.name} {path}"
-                + (f" [atoms {gi + 1}/{n_groups}]" if n_groups > 1 else ""),
-                total=len(slabs), unit="slab",
-            )
+                inner = progress_iter(
+                    prefetch_to_device(load, slabs),
+                    desc=f"{self.name} {path}"
+                    + (f" [atoms {gi + 1}/{n_groups}]" if n_groups > 1 else ""),
+                    total=len(slabs), unit="slab",
+                )
             for si, arr in enumerate(inner):
                 if with_info:
                     yield arr, StreamSlabInfo(

@@ -9,8 +9,9 @@ normalisation (sum over windows and particles divided by
 per window *and* per particle, ``:176,245``), SI conversion, spline-onset
 linear fit, D = slope / 6. ``Unwrapped_Positions`` stream from the store to
 the device slab by slab (the dependency check runs ``CoordinateUnwrapper``
-first when they are missing); the comb MSD runs there in float32 with
-float64 sums; the fit runs on the host.
+first when they are missing, or with ``config.fuse_streaming`` the stream
+unwraps the wrapped positions on the fly and stores nothing); the comb MSD
+runs there in float32 with float64 sums; the fit runs on the host.
 """
 
 from __future__ import annotations
@@ -33,6 +34,9 @@ class EinsteinDiffusionCoefficients(TrajectoryCalculator):
     """Self-diffusion from the mean-squared displacement."""
 
     loaded_property = mp.unwrapped_positions
+    #: with config.fuse_streaming, unwrap on the fly instead of materialising
+    #: Unwrapped_Positions (every slab streams through _stream_property)
+    supports_fused_streaming = True
     scale_function = {"linear": {"scale_factor": 10}}
     result_keys = ["diffusion_coefficient", "uncertainty", "gradient", "intercept"]
     result_series_keys = ["time", "msd", "gradients", "gradient_errors"]

@@ -377,16 +377,6 @@ class NernstEinsteinIonicConductivity(Calculator):
         corrected: bool = False, species: list = None,
         data_range: int = None, **kwargs
     ) -> Dict[str, Any]:
-        # reference arg contract (nernst_einstein_...py:71): corrected=True
-        # adds the distinct (cross) terms; the JAX package auto-runs them
-        # when they are not supplied
-        if corrected and not isinstance(distinct_diffusion_data, Computation):
-            raise NotImplementedError(
-                f"{self.name}: corrected=True needs the distinct diffusion "
-                "coefficients, and EinsteinDistinctDiffusionCoefficients is not "
-                "ported yet (ROADMAP.md, Queue 1 item 6.3). Pass "
-                "distinct_diffusion_data=<Computation> or corrected=False."
-            )
         # reference arg contract (nernst_einstein_...py:69-104):
         # ``data_range`` parameterises the underlying diffusion run,
         # ``species`` restricts which species' D_i enter the sum
@@ -404,6 +394,12 @@ class NernstEinsteinIonicConductivity(Calculator):
             if isinstance(distinct_diffusion_data, Computation)
             else None
         )
+        # reference arg contract (nernst_einstein_...py:71): corrected=True
+        # adds the distinct (cross) terms; auto-run them if not supplied
+        if corrected and self.distinct_diffusion_data is None:
+            self.distinct_diffusion_data = (
+                self.experiment.run.EinsteinDistinctDiffusionCoefficients(**auto_kwargs)
+            )
         args = {
             "diffusion_source": self.diffusion_data.name,
             "diffusion_args": self.diffusion_data.args,

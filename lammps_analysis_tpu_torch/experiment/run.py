@@ -53,8 +53,7 @@ class RunComputation:
         raise AttributeError(
             f"No calculator or transformation named {name!r} in the PyTorch "
             f"port. Ported calculators: {sorted(calcs)}; transformations: "
-            f"{sorted(trafos)}. The JAX package's other calculators (the "
-            "distinct diffusion pair, the SDF) are later slices (ROADMAP.md)."
+            f"{sorted(trafos)}."
         )
 
     def __dir__(self):

@@ -7,7 +7,9 @@ under a name that carries a hash of the source, the flags and the host CPU,
 and under the same file lock as ``_build.py``: concurrent processes build
 once, and a library built for one CPU is never loaded on another. Nothing
 is written into ``native/``. A failed build or load raises with the
-compiler's output; there is no other engine to fall back to.
+compiler's output; there is no other engine to fall back to. ``build`` takes
+another source of ``native/`` too (``chip_smoke.py`` builds the native SDF
+kernel with it, as a bar for the card).
 """
 
 from __future__ import annotations
@@ -41,34 +43,39 @@ def _host_cpu() -> bytes:
     return "\n".join(keep).encode()
 
 
-def library_path() -> pathlib.Path:
-    """Where the parser library for this source, these flags and this CPU lives."""
+def library_path(source: pathlib.Path | None = None) -> pathlib.Path:
+    """Where the library of ``source`` (the parser by default), for these
+    flags and this CPU, lives."""
+    source = SOURCE if source is None else source
     digest = hashlib.sha256(" ".join(GXX_FLAGS).encode())
-    digest.update(SOURCE.read_bytes())
+    digest.update(source.read_bytes())
     digest.update(_host_cpu())
-    return BUILD_DIR / f"libtable_parser-{digest.hexdigest()[:16]}.so"
+    return BUILD_DIR / f"lib{source.stem}-{digest.hexdigest()[:16]}.so"
 
 
-def build() -> pathlib.Path:
-    """Compile the parser unless a library for this source and CPU exists."""
-    path = library_path()
+def build(source: pathlib.Path | None = None) -> pathlib.Path:
+    """Compile ``source`` (the parser by default) unless a library for it and
+    this CPU exists. Other host sources of ``native/`` build the same way."""
+    source = SOURCE if source is None else source
+    what = source.stem.replace("_", "-")
+    path = library_path(source)
     BUILD_DIR.mkdir(exist_ok=True)
     with open(BUILD_DIR / "build.lock", "w") as lock_file:
         fcntl.flock(lock_file, fcntl.LOCK_EX)
         if path.exists():
             return path
         tmp = path.with_name(f"{path.stem}.{os.getpid()}.so.tmp")
-        cmd = ["g++", *GXX_FLAGS, str(SOURCE), "-o", str(tmp)]
+        cmd = ["g++", *GXX_FLAGS, str(source), "-o", str(tmp)]
         try:
             try:
                 proc = subprocess.run(cmd, capture_output=True, text=True, timeout=300)
             except OSError as err:
                 raise RuntimeError(
-                    f"cannot run the table-parser build {' '.join(cmd)}: {err}"
+                    f"cannot run the {what} build {' '.join(cmd)}: {err}"
                 ) from err
             if proc.returncode != 0:
                 raise RuntimeError(
-                    f"table-parser build failed with exit code {proc.returncode}: "
+                    f"{what} build failed with exit code {proc.returncode}: "
                     f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}"
                 )
             os.replace(tmp, path)

@@ -1,8 +1,8 @@
-"""FFT-based windowed autocorrelation.
+"""FFT-based windowed autocorrelation and cross-correlation.
 
-Counterpart of ``windowed_acf_sum`` in
-``lammps_analysis_tpu/ops/correlation.py`` in torch ops on the tensor's device
-(``torch.fft``). The reference computes windowed autocorrelations with
+Counterpart of ``windowed_acf_sum``, ``cross_correlation_biased`` and
+``window_starts`` in ``lammps_analysis_tpu/ops/correlation.py`` in torch ops
+on the tensor's device (``torch.fft``). The reference computes windowed autocorrelations with
 ``tfp.stats.auto_correlation(..., center=False, normalize=False)`` per sliding
 window; ``acf = irfft(|rfft(x, 2T)|^2)[:T] / T`` is the same biased estimator
 (denominator ``T`` for every lag), batched over windows, particles and
@@ -21,6 +21,35 @@ import torch
 def _next_fast_len(n: int) -> int:
     """Next power of two >= n."""
     return 1 << (int(n - 1).bit_length())
+
+
+def window_starts(total: int, window: int, stride: int) -> torch.Tensor:
+    """Start indices (int64) of the sliding ensemble windows.
+
+    Windows of length ``window`` every ``stride`` frames; the last window
+    must fit entirely (the reference's ensemble loop,
+    ``data_manager.py:288-341``).
+    """
+    n = (total - window) // stride + 1 if total >= window else 0
+    return torch.arange(max(n, 0), dtype=torch.int64) * stride
+
+
+def cross_correlation_biased(x: torch.Tensor, y: torch.Tensor, dim: int = -1) -> torch.Tensor:
+    """Biased cross-correlation ``(1/T) sum_t x[t] y[t+m]`` along ``dim``.
+
+    The FFT runs in the inputs' dtype; the leading dimensions are a batch
+    (many windows correlate in one call). Used by the distinct
+    diffusion-coefficient calculators (reference helper ``correlate``,
+    ``utils/calculator_helper_methods.py:110-150``).
+    """
+    x = x.movedim(dim, -1)
+    y = y.movedim(dim, -1)
+    n = x.shape[-1]
+    fft_len = _next_fast_len(2 * n)
+    fx = torch.fft.rfft(x, n=fft_len, dim=-1)
+    fy = torch.fft.rfft(y, n=fft_len, dim=-1)
+    ccf = torch.fft.irfft(torch.conj(fx) * fy, n=fft_len, dim=-1)[..., :n] / n
+    return ccf.movedim(-1, dim)
 
 
 #: a batch may hold more than 32 windows while it stays under this size

@@ -5,9 +5,11 @@ form the port's kernels compute it: ``r - box * rint(r * (1/box))`` with the
 float32 reciprocal ``1/box`` computed once on the host (``box_scalars``), as
 the TPU kernels do (``pallas_rdf.py:161-163``, ``pallas_adf.py:372``). The
 JAX package's XLA path divides by the box instead; the two can differ for a
-displacement within about one float32 ulp of half a box. Also the
-counterpart of its ``wrap_coordinates`` (the coordinate wrapper and molecule
-mapping).
+displacement within about one float32 ulp of half a box. The dividing form
+is ``minimum_image_divided``, for the spatial distribution function, whose
+shell test then keeps the pairs the JAX package keeps. Also the counterparts
+of its ``wrap_coordinates`` (the coordinate wrapper and molecule mapping) and
+``cartesian_to_spherical``/``spherical_to_cartesian`` (the SDF).
 """
 
 from __future__ import annotations
@@ -83,3 +85,40 @@ def wrap_coordinates(
     if center:
         wrapped = wrapped - box * 0.5
     return wrapped
+
+
+def minimum_image_divided(r: torch.Tensor, box: torch.Tensor) -> torch.Tensor:
+    """Displacements wrapped into the primary image by dividing by the box.
+
+    ``r - box * round(r / box)`` over a trailing axis of 3 (the JAX package's
+    ``minimum_image``), in ``r``'s dtype; ``torch.round`` rounds half to
+    even, as ``jnp.round`` does.
+    """
+    return r - box * torch.round(r / box)
+
+
+def cartesian_to_spherical(xyz: torch.Tensor) -> torch.Tensor:
+    """``(..., 3)`` cartesian -> ``(r, theta, phi)`` (reference ``linalg.py:139-183``).
+
+    ``theta = arccos(z / r)`` with ``theta = 0`` at ``r = 0``, ``phi =
+    atan2(y, x)``; ``r`` is ``sqrt(x*x + y*y + z*z)`` summed in that order.
+    """
+    x, y, z = xyz[..., 0], xyz[..., 1], xyz[..., 2]
+    r = torch.sqrt(x * x + y * y + z * z)
+    positive = r > 0
+    theta = torch.arccos(torch.where(positive, z / torch.where(positive, r, 1.0), 1.0))
+    phi = torch.atan2(y, x)
+    return torch.stack([r, theta, phi], dim=-1)
+
+
+def spherical_to_cartesian(rtp: torch.Tensor) -> torch.Tensor:
+    """Inverse of :func:`cartesian_to_spherical` (reference ``linalg.py:185-219``)."""
+    r, theta, phi = rtp[..., 0], rtp[..., 1], rtp[..., 2]
+    return torch.stack(
+        [
+            r * torch.sin(theta) * torch.cos(phi),
+            r * torch.sin(theta) * torch.sin(phi),
+            r * torch.cos(theta),
+        ],
+        dim=-1,
+    )

@@ -2,7 +2,8 @@
 
 Counterpart of ``lammps_analysis_tpu/pipeline/prefetch.py``. A worker thread
 runs ``load_fn`` (disk I/O and numpy work) into a pinned host tensor and
-issues a ``non_blocking`` copy on a dedicated copy stream; the consumer's
+issues a ``non_blocking`` copy on a dedicated copy stream (every array of a
+dict of arrays, for a slab of several species); the consumer's
 stream waits on an event recorded after the copy, so the copy of batch k+1
 overlaps the kernels of batch k. On the CPU device the worker only loads.
 """
@@ -12,7 +13,7 @@ from __future__ import annotations
 import collections
 import concurrent.futures
 import logging
-from typing import Callable, Iterator, Sequence, TypeVar
+from typing import Callable, Dict, Iterator, Sequence, TypeVar
 
 import numpy as np
 import torch
@@ -25,13 +26,15 @@ T = TypeVar("T")
 
 
 def prefetch_to_device(
-    load_fn: Callable[[T], np.ndarray],
+    load_fn: Callable[[T], np.ndarray | Dict[str, np.ndarray]],
     items: Sequence[T],
     depth: int = 2,
     device: torch.device | None = None,
-) -> Iterator[torch.Tensor]:
+) -> Iterator[torch.Tensor | Dict[str, torch.Tensor]]:
     """Yield ``load_fn(item)`` as a tensor on ``device``, ``depth`` items ahead.
 
+    ``load_fn`` returns an array, or a dict of arrays (several species of
+    one slab), which arrives as a dict of tensors copied together.
     ``device=None`` means the configured device (``config.device``). Each
     yielded tensor is ready for use on the caller's current stream.
     """
@@ -44,15 +47,20 @@ def prefetch_to_device(
     )
 
     def load_and_copy(item):
-        host = torch.from_numpy(np.ascontiguousarray(load_fn(item)))
-        if copy_stream is None:
-            return host, None
-        pinned = host.pin_memory()
-        with torch.cuda.stream(copy_stream):
-            on_device = pinned.to(device, non_blocking=True)
-            done = torch.cuda.Event()
-            done.record(copy_stream)
-        return on_device, done
+        loaded = load_fn(item)
+        as_dict = isinstance(loaded, dict)
+        tensors = {
+            k: torch.from_numpy(np.ascontiguousarray(a))
+            for k, a in (loaded.items() if as_dict else [(None, loaded)])
+        }
+        done = None
+        if copy_stream is not None:
+            pinned = {k: t.pin_memory() for k, t in tensors.items()}
+            with torch.cuda.stream(copy_stream):
+                tensors = {k: t.to(device, non_blocking=True) for k, t in pinned.items()}
+                done = torch.cuda.Event()
+                done.record(copy_stream)
+        return (tensors if as_dict else tensors[None]), done
 
     with concurrent.futures.ThreadPoolExecutor(max_workers=depth) as pool:
         queue = collections.deque()
@@ -68,14 +76,15 @@ def prefetch_to_device(
                 queue.append(pool.submit(load_and_copy, next(it)))
             except StopIteration:
                 pass
-            tensor, done = fut.result()
+            out, done = fut.result()
             if done is not None:
                 consumer = torch.cuda.current_stream(device)
                 consumer.wait_event(done)
-                # the tensor was allocated on the copy stream: tell the
-                # caching allocator the consumer's stream uses it too
-                tensor.record_stream(consumer)
-            yield tensor
+                # the tensors were allocated on the copy stream: tell the
+                # caching allocator the consumer's stream uses them too
+                for tensor in out.values() if isinstance(out, dict) else (out,):
+                    tensor.record_stream(consumer)
+            yield out
 
 
 def iter_in_background(iterable, depth: int = 2):

@@ -32,6 +32,14 @@ class Config:
     device_memory_fraction : float
         Fraction of the GPU's memory the planner may fill with trajectory
         data.
+    fuse_streaming : bool
+        If True, calculators that stream ``Unwrapped_Positions`` unwrap the
+        wrapped positions on the fly (the carry chained across slabs) when
+        the unwrapped dataset is not materialised, skipping one
+        full-trajectory write and read. Results are identical to the
+        materialised path (the unwrap is batch-size invariant); the trade is
+        that no ``Unwrapped_Positions`` dataset is left behind for later
+        reuse. Off by default (reference semantics).
     progress_bars : bool | None
         Progress bars on long loops; ``None`` means on only when stderr is a
         TTY or ``jupyter`` is set.
@@ -41,6 +49,7 @@ class Config:
     jupyter: bool = False
     memory_fraction: float = 0.5
     device_memory_fraction: float = 0.6
+    fuse_streaming: bool = False
     progress_bars: bool | None = None
 
 

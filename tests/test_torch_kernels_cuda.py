@@ -16,7 +16,10 @@ The transport slice, which has no hand-written kernel, runs its Einstein and
 Green-Kubo calculators from a small dump on the card and on the CPU, which
 must agree within the transport tolerance (``tests/torch_dumps.py``); so do
 the conductivity path and the molecular path (a small water box from a TRR,
-``tests/torch_water.py``).
+``tests/torch_water.py``). So do the distinct diffusion pair (the distinct
+tolerance), the spatial distribution function (counts within the SDF's
+tolerance: ``arccos``/``atan2`` may round apart by an ulp) and the fused
+unwrap stream (on the card equal to the card's materialised run bit for bit).
 Marked ``cuda``; without a CUDA device every test skips. On a machine with a
 card: ``python -m pytest tests/test_torch_kernels_cuda.py -m cuda --noconftest``.
 """
@@ -436,3 +439,100 @@ def test_molecular_path_on_the_card_matches_the_cpu(cuda, tmp_path):
             continue
         _assert_adf_close(ours, plain)
     assert card["adf"]["O_H_H"]["max_peak"] == cpu["adf"]["O_H_H"]["max_peak"]
+
+
+def _dump_experiment(tmp_path, name, path):
+    from lammps_analysis_tpu_torch import Project
+
+    return Project(name=name, storage_path=tmp_path).add_experiment(
+        "e", timestep=0.002, units="metal", temperature=1200.0, simulation_data=str(path)
+    )
+
+
+def test_distinct_pair_on_the_card_matches_the_cpu(cuda, tmp_path):
+    from lammps_analysis_tpu_torch.utils.config import config
+    from torch_dumps import assert_distinct_close, random_walk, walk_columns, write_dump
+
+    wrapped, _, vel, names = random_walk((30, 20), 60, 10.0, 0.3, 0.02, seed=6)
+    path = tmp_path / "t.lammpstrj"
+    write_dump(path, 10.0, walk_columns(wrapped, vel, names), every=10, shuffle_seed=6)
+    results = {}
+    old = config.device
+    try:
+        for device in ("cuda", "cpu"):
+            config.device = device
+            exp = _dump_experiment(tmp_path, device, path)
+            exp.set_charge("Na", 1.0)
+            exp.set_charge("Cl", -1.0)
+            results[device] = [
+                exp.run.EinsteinDistinctDiffusionCoefficients(data_range=15, plot=False).data_dict,
+                exp.run.GreenKuboDistinctDiffusionCoefficients(data_range=15, plot=False).data_dict,
+                exp.run.NernstEinsteinIonicConductivity(corrected=True, data_range=15,
+                                                        plot=False)["System"],
+            ]
+    finally:
+        config.device = old
+    assert_distinct_close(results["cuda"][0], results["cpu"][0], "msd")
+    assert_distinct_close(results["cuda"][1], results["cpu"][1], "vacf")
+    for key, value in results["cpu"][2].items():
+        np.testing.assert_allclose(results["cuda"][2][key], value, rtol=1e-5, err_msg=key)
+
+
+def test_sdf_on_the_card_matches_the_cpu(cuda, tmp_path):
+    import lammps_analysis_tpu_torch as lt
+    from lammps_analysis_tpu_torch.database import (
+        PropertyInfo, SpeciesInfo, TrajectoryChunkData, TrajectoryMetadata,
+    )
+    from lammps_analysis_tpu_torch.file_io import ScriptInput
+    from lammps_analysis_tpu_torch.utils.config import config
+    from torch_dumps import assert_counts_close
+
+    rng = np.random.default_rng(8)
+    counts, box = (400, 300), 15.0
+    pos = rng.uniform(0, box, (12, sum(counts), 3)).astype(np.float32)
+    prop = PropertyInfo("Positions", 3)
+    species = [SpeciesInfo(n, c, [prop]) for n, c in zip(("Na", "Cl"), counts)]
+    results = {}
+    old = config.device
+    try:
+        for device in ("cuda", "cpu"):
+            config.device = device
+            meta = TrajectoryMetadata(n_configurations=12, species_list=species, box_l=[box] * 3,
+                                      sample_rate=1)
+            chunk = TrajectoryChunkData(species, 12)
+            chunk.add_data(pos[:, : counts[0]], 0, "Na", "Positions")
+            chunk.add_data(pos[:, counts[0]:], 0, "Cl", "Positions")
+            exp = lt.Project(name=device, storage_path=tmp_path).add_experiment(
+                "e", timestep=0.002, units="metal", simulation_data=ScriptInput(chunk, meta, "d")
+            )
+            results[device] = [
+                exp.run.SpatialDistributionFunction(species=sp, r_min=2.0, r_max=4.5, n_bins=40,
+                                                    plot=False)["System"]
+                for sp in (["Na", "Cl"], ["Na"])
+            ]
+    finally:
+        config.device = old
+    for card, cpu in zip(results["cuda"], results["cpu"]):
+        assert_counts_close(card["sdf"], cpu["sdf"])
+        assert card["sphere"] == cpu["sphere"]
+
+
+def test_fused_einstein_on_the_card_equals_the_materialised_run(cuda, tmp_path, monkeypatch):
+    from lammps_analysis_tpu_torch.utils.config import config
+    from torch_dumps import assert_einstein_close, random_walk, walk_columns, write_dump
+
+    wrapped, _, vel, names = random_walk((30, 20), 80, 4.0, 0.3, 0.02, seed=7)
+    path = tmp_path / "t.lammpstrj"
+    write_dump(path, 4.0, walk_columns(wrapped, vel, names), every=10, shuffle_seed=7)
+    kw = dict(data_range=20, correlation_time=3, plot=False)
+    monkeypatch.setattr(config, "device", "cuda")
+    materialised = _dump_experiment(tmp_path, "mat", path).run.EinsteinDiffusionCoefficients(**kw)
+    results = {}
+    monkeypatch.setattr(config, "fuse_streaming", True)
+    for device in ("cuda", "cpu"):
+        monkeypatch.setattr(config, "device", device)
+        exp = _dump_experiment(tmp_path, f"fused-{device}", path)
+        results[device] = exp.run.EinsteinDiffusionCoefficients(**kw).data_dict
+        assert not exp.store.check_existence("Na/Unwrapped_Positions")
+    assert results["cuda"] == materialised.data_dict
+    assert_einstein_close(results["cuda"], results["cpu"])

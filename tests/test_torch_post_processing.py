@@ -327,7 +327,9 @@ def test_nernst_einstein_from_diffusion_matches_jax(tmp_path):
 def test_nernst_einstein_auto_runs_einstein_and_refuses_corrected(tmp_path):
     """Without ``diffusion_data`` the data_range parameterises the auto-run
     Einstein diffusion and keys the cache; ``corrected=True`` without
-    distinct data raises, naming the calculator not ported yet."""
+    distinct data no longer refuses: it auto-runs
+    ``EinsteinDistinctDiffusionCoefficients`` as the JAX package does, keys
+    the cache with its args and gives a finite corrected conductivity."""
     import lammps_analysis_tpu_torch as lt
     from lammps_analysis_tpu_torch.database import (
         PropertyInfo, SpeciesInfo, TrajectoryChunkData, TrajectoryMetadata,
@@ -352,8 +354,10 @@ def test_nernst_einstein_auto_runs_einstein_and_refuses_corrected(tmp_path):
     assert res_a.args["diffusion_args"]["data_range"] == 48
     assert res_b.args["diffusion_args"]["data_range"] == 96
     assert np.isfinite(res_a["System"]["nernst_einstein_ionic_conductivity"])
-    with pytest.raises(NotImplementedError, match="EinsteinDistinctDiffusionCoefficients"):
-        exp.run.NernstEinsteinIonicConductivity(corrected=True, plot=False)
+    corrected = exp.run.NernstEinsteinIonicConductivity(corrected=True, data_range=48, plot=False)
+    assert corrected.args["distinct_source"] == "EinsteinDistinctDiffusionCoefficients"
+    assert corrected.args["distinct_args"]["data_range"] == 48
+    assert np.isfinite(corrected["System"]["corrected_nernst_einstein_ionic_conductivity"])
 
 
 # -------------------------------------------------------------------- goldens

@@ -22,6 +22,13 @@ formulas in float64 on stored arrays; ``gk_system_direct`` and
 ``(T, 1, 3)`` series, and ``assert_system_close`` holds two system results
 to the transport tolerance; ``write_flux_file`` writes a LAMMPS flux (log)
 file.
+
+``distinct_series_direct`` gives the distinct diffusion pair's window-mean
+MSD and VACF series in float64 from stored arrays, through the bilinear form
+(a correlation of particle-mean series less the atom-mean self term, O(N)
+per window); ``assert_distinct_close`` holds two distinct results to the
+distinct tolerance and ``assert_counts_close`` two histograms of counts to
+the SDF's.
 """
 
 import numpy as np
@@ -322,3 +329,83 @@ def write_flux_file(path, columns, rows_per_block=100_000):
                 cols.append(_fixed6(v) if v.dtype.kind == "f" else _text(v))
             cols.append(np.full((r1 - r0, 1), ord("\n"), np.uint8))
             f.write(np.concatenate(cols, -1).tobytes())
+
+
+def cross_sums_direct(a, b, window, stride):
+    """``(window,)`` float64 sums over windows and axes of each window's raw
+    cross-correlation ``sum_t b[w + t] . a[w + t + m]`` of two (T, 3) series,
+    from their float64 Gram matrix (products weighted by the number of
+    windows that hold both frames)."""
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    total = len(a)
+    n_windows = (total - window) // stride + 1
+    gram = b @ a.T  # gram[t, u] = b[t] . a[u]
+    out = np.empty(window)
+    for m in range(window):
+        t = np.arange(total - m)
+        first = np.maximum(0, -(-(t + m - window + 1) // stride))
+        last = np.minimum(n_windows - 1, t // stride)
+        out[m] = np.dot(np.diagonal(gram, m), np.maximum(last - first + 1, 0))
+    return out
+
+
+def distinct_series_direct(a, b, window, stride, same, kind, length, time=1.0, frame=1.0):
+    """The distinct pair's series for every lag in float64, from stored
+    (T, N, 3) arrays ``a`` and ``b``: ``kind="msd"`` the Einstein pair's
+    (positions), ``"vacf"`` the Green-Kubo pair's (velocities, and then also
+    its D as the second value, for the ``time`` unit and the raw ``frame``
+    interval: the window mean of per-window trapezoids is the trapezoid of
+    the window mean).
+
+    Per window, the cross term of the particle-mean series averaged over the
+    axes, less the atom-mean self term when ``same``; averaged over windows;
+    the MSD in ``length**2``, the VACF in raw units.
+    """
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    n_windows = (len(a) - window) // stride + 1
+    ma, mb = a.mean(axis=1), b.mean(axis=1)
+    if kind == "msd":
+        origins = slice(0, (n_windows - 1) * stride + 1, stride)
+        cross = np.array([
+            np.sum((ma[m:][origins] - ma[origins]) * (mb[m:][origins] - mb[origins]))
+            for m in range(window)
+        ]) / 3
+        self_sum = msd_sums_direct(a, window, stride) / 3 if same else 0.0
+        return (cross - self_sum / a.shape[1]) / n_windows * length**2
+    cross = cross_sums_direct(ma, mb, window, stride) / 3
+    self_sum = acf_sums_direct(a, window, stride) * window / 3 if same else 0.0
+    vacf = (cross - self_sum / a.shape[1]) / n_windows
+    times = np.arange(window) * frame
+    return vacf, length**2 / (time * (window - 1)) * np.trapezoid(vacf, x=times)
+
+
+def assert_distinct_close(ours, ref, key):
+    """Two results of one distinct class: every series within rtol 1e-5 plus
+    1e-6 x the largest same-species value of that series, D the same (atol
+    1e-6 x the largest same-species |D|), the uncertainty within rtol 1e-3."""
+    assert list(ours) == list(ref)
+    same = [p for p in ref if p.split("_")[0] == p.split("_")[1]]
+    scale = max(np.abs(ref[p][key]).max() for p in same)
+    d_scale = max(abs(np.ravel(ref[p]["diffusion_coefficient"])[0]) for p in same)
+    for pair, values in ref.items():
+        np.testing.assert_allclose(ours[pair]["time"], values["time"], rtol=1e-12)
+        np.testing.assert_allclose(ours[pair][key], values[key], rtol=1e-5, atol=1e-6 * scale,
+                                   err_msg=f"{pair} {key}")
+        np.testing.assert_allclose(ours[pair]["diffusion_coefficient"], values["diffusion_coefficient"],
+                                   rtol=1e-5, atol=1e-6 * d_scale, err_msg=f"{pair} D")
+        np.testing.assert_allclose(ours[pair]["uncertainty"], values["uncertainty"], rtol=1e-3,
+                                   err_msg=f"{pair} uncertainty")
+
+
+def assert_counts_close(ours, ref):
+    """Two histograms of counts: totals within 0.01 % and the summed per-bin
+    difference within max(4, 1e-4 x the total). Returns ``(total difference,
+    summed per-bin difference)``."""
+    ours, ref = np.asarray(ours, np.float64), np.asarray(ref, np.float64)
+    assert ours.shape == ref.shape, (ours.shape, ref.shape)
+    total = ref.sum()
+    assert total > 0
+    diff_total, diff_bins = abs(ours.sum() - total), np.abs(ours - ref).sum()
+    assert diff_total <= 1e-4 * total, (diff_total, total)
+    assert diff_bins <= max(4.0, 1e-4 * total), (diff_bins, total)
+    return float(diff_total), float(diff_bins)
