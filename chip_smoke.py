@@ -18,10 +18,16 @@ Phases, one line each (any failure raises and the exit code is not 0):
    after a warm-up call), the plain version's time (CUDA events around
    back-to-back calls) and the kernel's bound:
    * ``[2 kernel]`` the RDF pair histogram in each of its histogram modes,
-     equal bin for bin;
+     equal bin for bin; its i-row range (the 2-D RDF's mode) on one rank's
+     launch, 32 frames x 10240 atoms: stripes of 2 and 4 each equal to the
+     plain version and adding up to the full launch bit for bit, each
+     stripe's time and bound (the triangle's imbalance);
    * ``[2 extract]`` both routes of the ADF neighbor extract (the sweep and
      the cell lists), all six outputs equal (a saturated binned case on the
      rows that fit K and on ``counts``), with the routes' times side by side;
+     the center stripe (the 2-D ADF's mode) of both routes on 8 frames x
+     10240 atoms: stripes of 1, 2 and 4 equal to the plain version and to the
+     rows of the full launch, the first of two timed with its bound;
    * ``[2 angles]`` the ADF angle histogram on those lists, K > 1024 too,
      a frame of mixed widths (a dense cluster among first shells), 64 frames
      in one launch and seeded lists with 0, 1, 2, 32, 33, K and more entries
@@ -109,6 +115,18 @@ Phases, one line each (any failure raises and the exit code is not 0):
    path ``MolecularMap`` (re-run), the molecular Einstein and RDF and the
    ADF, ``MolecularMap``'s layer spans and the readers' parse rates; the
    fused Einstein, both distinct classes and the SDF (Na-Cl, Na-Na).
+
+5. ``[5 mesh]``: the multi-device layer (``parallel/``) on the RDF (64 x
+   10240), ADF (16 x 10240), Einstein and GK (the 500-frame dump) through
+   ``exp.run``, each world held to the process alone on the same inputs
+   (counts exactly, the ADF within its allowance, transport within rtol
+   1e-5), with every rank's kernel launches (no plain call), cache hits, one
+   DB row per computation (rank 0 writes), the forced calls' walls and the
+   host time of their collectives: (a) a world of 1 on NCCL; (b) four ranks
+   sharing the card over gloo, then on a (2, 2) mesh the RDF calculator
+   through K1's i-rows and the sharded ADF through K2's center stripes, on
+   the binned route and once on the sweep; (c) one rank a card over NCCL
+   when the machine has two or more cards (else the line says why not).
 
 ``--walls`` runs only the forced-call medians (the transport path's too)
 and the angle kernel's one-frame launch, for an A/B of two checkouts on one
@@ -323,34 +341,49 @@ def device_ms(fn, reps: int, record: str, parts=None, present_only=False) -> flo
     """Mean device milliseconds per call of a kernel record's device kernels
     (``DEVICE_KERNELS``, or those whose names hold one of ``parts``), from
     ``torch.profiler`` over ``reps`` calls after a warm-up call: the kernels'
-    own time, free of the host's launch cost, memsets and gaps. A part the
-    profiler did not see raises, unless ``present_only``."""
+    own time, free of the host's launch cost, memsets and gaps. The profiler
+    sometimes records no device event for a window: a window that misses a
+    part is profiled again, twice; after that a part it never saw raises,
+    unless ``present_only``, and a record it saw nothing of is timed with CUDA
+    events around back-to-back calls (``time_ms``, launch cost included):
+    an ``EventMs``, which the line printed and the kernels line's
+    ``"timing"`` say."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    # per kernel of the record: its mean over the launches the profiler saw
-    # (it may miss the first ones of a window)
-    total_us = 0.0
-    for part in parts or DEVICE_KERNELS[record]:
-        spans = [
-            e.time_range.end - e.time_range.start
-            for e in prof.events()
-            if e.device_type == DeviceType.CUDA and part in e.name
-        ]
-        if not spans:
-            if present_only:
+    for attempt in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        # per kernel of the record: its mean over the launches the profiler saw
+        # (it may miss the first ones of a window)
+        total_us, missing = 0.0, []
+        for part in parts or DEVICE_KERNELS[record]:
+            spans = [
+                e.time_range.end - e.time_range.start
+                for e in prof.events()
+                if e.device_type == DeviceType.CUDA and part in e.name
+            ]
+            if not spans:
+                missing.append(part)
                 continue
-            raise RuntimeError(f"the profiler saw no {part} kernel of {record}")
-        total_us += sum(spans) / len(spans)
+            total_us += sum(spans) / len(spans)
+        if not missing or (present_only and total_us > 0.0):
+            return total_us / 1e3
     if total_us == 0.0:
-        raise RuntimeError(f"the profiler saw no kernel of {record}")
-    return total_us / 1e3
+        ms = time_ms(fn, reps)
+        phase("2 timing", f"the profiler recorded no device event of {record} in 3 windows; "
+              f"{ms:.4f} ms a call from CUDA events around {reps} back-to-back calls instead")
+        return EventMs(ms)
+    raise RuntimeError(f"the profiler saw no {missing} kernel of {record} in 3 windows")
+
+
+class EventMs(float):
+    """Milliseconds a call from CUDA events around back-to-back calls, launch
+    cost included, where the profiler saw no device time (``device_ms``)."""
 
 
 def time_ms(fn, reps: int) -> float:
@@ -467,31 +500,139 @@ def place(pos, box, layout):
         pos[:, 1::5] -= edges
 
 
-def needed_tests(pos, sid, box, cutoff, n_species) -> int:
+def needed_tests(pos, sid, box, cutoff, n_species, centers=None) -> int:
     """Distance tests the neighbor extract needs on these inputs: for every
-    cell, its atoms times the atoms of its 27 neighbor cells; every pair when
-    the box holds fewer than three cells on some axis."""
+    cell, its centers (those of the stripe ``centers``, else every atom)
+    times the atoms of its 27 neighbor cells; every center against every
+    atom when the box holds fewer than three cells on some axis."""
     from lammps_analysis_tpu_torch.ops import cells
 
     f, n_atoms, _ = pos.shape
+    c0, c1 = centers or (0, n_atoms)
     if not cells.cell_lists_applicable(box, cutoff):
-        return f * n_atoms * n_atoms
+        return f * (c1 - c0) * n_atoms
     n = cells.cells_per_axis(box, cutoff)
     cell = cells.cell_of_atoms(pos, sid, box, n, n_species)
     occ = cells.cell_occupancy(cell, int(np.prod(n)))[:, :-1]
+    occ_c = cells.cell_occupancy(cell[:, c0:c1].contiguous(), int(np.prod(n)))[:, :-1]
     hood = torch.from_numpy(cells.neighbor_cells(n)).to(pos.device)
-    return int((occ * occ[:, hood].sum(-1)).sum())
+    return int((occ_c * occ[:, hood].sum(-1)).sum())
 
 
-def extract_bound(pos, sid, box, cutoff, n_species, k_n, counts):
+def extract_bound(pos, sid, box, cutoff, n_species, k_n, counts, centers=None):
     """The neighbor extract's bound, one for both routes: the function's
-    work, not a route's."""
+    work, not a route's (for a stripe, its centers' tests and rows)."""
     f, n, _ = pos.shape
-    tests = needed_tests(pos, sid, box, cutoff, n_species)
+    c0, c1 = centers or (0, n)
+    tests = needed_tests(pos, sid, box, cutoff, n_species, centers)
     # ~22 float32 operations a test (as the RDF's), the square root of a kept one
     flops = 22 * tests + int(counts.sum())
-    n_bytes = f * n * 12 + n * 4 + f * n * k_n * 20 + f * n * 4
+    n_bytes = f * n * 12 + n * 4 + f * (c1 - c0) * (k_n * 20 + 4)
     return bound(flops, n_bytes)
+
+
+def stripes_of(n: int, parts: int) -> list:
+    """``[lo, hi)`` of each of ``parts`` stripes of ``n``, as
+    ``parallel/mesh.py::data_sharding`` cuts them (the remainder to the
+    leading stripes)."""
+    base, extra = divmod(n, parts)
+    edges = [0]
+    for r in range(parts):
+        edges.append(edges[-1] + base + (1 if r < extra else 0))
+    return list(zip(edges[:-1], edges[1:]))
+
+
+def kernel_rows() -> dict:
+    """``[2 kernel]`` K1's i-row range on one rank's launch of the 2-D RDF of
+    ``[5 mesh]`` (32 frames x 10240 atoms, the bench case): the stripes of 2
+    and of 4 each equal the plain version with the same rows and add up to the
+    full launch bit for bit; each stripe's device time, pairs and bound (the
+    global triangle makes the first stripe the heaviest). Returns the record
+    of the first of two stripes (rank 0's share on a (2, 2) mesh)."""
+    from lammps_analysis_tpu_torch.ops import rdf_kernel
+    from lammps_analysis_tpu_torch.ops.rdf import rdf_histogram_reference
+
+    device = torch.device("cuda")
+    n_frames = 32
+    pos, sid = make_case(BENCH["counts"], n_frames, BENCH["box"], 41, device)
+    args = (pos, sid, BENCH["box"], BENCH["cutoff"], BENCH["n_bins"], 2)
+    full = rdf_kernel.rdf_histogram(*args)
+    n = pos.shape[1]
+    record = None
+    for parts in (2, 4):
+        total = torch.zeros_like(full)
+        line = []
+        for lo, hi in stripes_of(n, parts):
+            ours = rdf_kernel.rdf_histogram(*args, rows=(lo, hi))
+            plain = rdf_histogram_reference(*args, rows=(lo, hi))
+            torch.cuda.synchronize()
+            if not torch.equal(ours, plain):
+                raise RuntimeError(f"K1 rows {lo}-{hi}: the kernel differs from the plain version")
+            total += ours
+            ms = device_ms(lambda: rdf_kernel.rdf_histogram(*args, rows=(lo, hi)), 5, "rdf_histogram")
+            pairs = n_frames * ((hi - lo) * (n - 1) - (hi * (hi - 1) - lo * (lo - 1)) // 2)
+            bound_ms, bound_by = bound(22 * pairs + 2 * int(ours.sum()),
+                                       n_frames * n * 12 + n * 4 + ours.numel() * 8)
+            line.append(f"rows {lo}-{hi} {ms:.3f} ms ({pairs / 1e9:.3f} G pairs, bound {bound_ms:.3f} ms)")
+            if record is None:
+                plain_ms = time_ms(lambda: rdf_histogram_reference(*args, rows=(lo, hi)), 1)
+                record = dict(max_diff=0, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                              bound_by=bound_by, last_ms=None)
+            if parts == 2:
+                record["last_ms"] = ms
+        if not torch.equal(total, full):
+            raise RuntimeError(f"K1 rows: {parts} stripes do not add up to the full launch")
+        phase("2 kernel", f"K1 row range, {parts} stripes of {n_frames} x {n} atoms (bench case): each "
+              f"equal to the plain version, their sum equal to the full launch bit for bit; "
+              + "; ".join(line))
+    phase("2 kernel", f"K1 row range: the first of 2 stripes takes {record['ms']:.3f} ms, the second "
+          f"{record['last_ms']:.3f} ms ({record['ms'] / record['last_ms']:.2f} x: the triangle's "
+          f"imbalance, not rebalanced); plain {record['plain_ms']:.3f} ms for the first")
+    return record
+
+
+def extract_stripes() -> dict:
+    """``[2 extract]`` K2's center stripe on both routes, on one rank's launch
+    of the 2-D ADF of ``[5 mesh]`` (8 frames x 10240 atoms, first shell):
+    stripes of 1, 2 and 4 each equal the plain version with the same centers
+    and the rows of the full launch (all six outputs); the first of two
+    stripes timed on each route with its bound. Returns its records by
+    route."""
+    from lammps_analysis_tpu_torch.ops import adf_kernel
+    from lammps_analysis_tpu_torch.ops.adf import neighbor_extract_reference
+    from lammps_analysis_tpu_torch.parallel.sharded_ops import AdfPlan
+
+    routes = {"binned": adf_kernel.neighbor_extract_binned, "sweep": adf_kernel.neighbor_extract_sweep}
+    device = torch.device("cuda")
+    pos, sid = make_case(ADF["counts"], 8, ADF["box"], 42, device)
+    n = pos.shape[1]
+    k_n = AdfPlan(n, ADF["box"], ADF["cutoff"]).k_n
+    args = (pos, sid, ADF["box"], ADF["cutoff"], k_n, 2)
+    records = {}
+    for route, extract in routes.items():
+        full = extract(*args)
+        for parts in (1, 2, 4):
+            for lo, hi in stripes_of(n, parts):
+                ours = extract(*args, centers=(lo, hi))
+                plain = neighbor_extract_reference(*args, centers=(lo, hi))
+                torch.cuda.synchronize()
+                for name, a, b, c in zip(("rx", "ry", "rz", "d", "sid", "counts"), ours, plain, full):
+                    if not (torch.equal(a, b) and torch.equal(a, c[:, lo:hi])):
+                        raise RuntimeError(f"K2 {route} stripe {lo}-{hi}: {name} differs from the plain "
+                                           "version or the full launch")
+        (lo, hi), _ = stripes_of(n, 2)
+        counts = full[5][:, lo:hi]
+        ms = device_ms(lambda: extract(*args, centers=(lo, hi)), 20, RECORD_OF_ROUTE[route])
+        full_ms = device_ms(lambda: extract(*args), 20, RECORD_OF_ROUTE[route])
+        plain_ms = time_ms(lambda: neighbor_extract_reference(*args, centers=(lo, hi)), 1)
+        bound_ms, bound_by = extract_bound(pos, sid, ADF["box"], ADF["cutoff"], 2, k_n, counts, (lo, hi))
+        records[route] = dict(max_diff=0.0, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
+        phase("2 extract", f"center stripes, {route}: stripes of 1, 2 and 4 of 8 x {n} atoms at K={k_n} "
+              f"each equal to the plain version and to the rows of the full launch (all six outputs); "
+              f"the first of 2 stripes {ms:.4f} ms on the device against the full launch's "
+              f"{full_ms:.4f} ms ({ms / full_ms:.2f} x), bound {bound_ms:.4f} ms ({bound_by}; "
+              f"{100 * bound_ms / ms:.1f} % of it), plain {plain_ms:.3f} ms")
+    return records
 
 
 def pairs_bound(sid_n, counts, sid_c, n_species, n_hist):
@@ -1146,7 +1287,7 @@ def adf_main_path(card: str) -> tuple[dict, dict]:
     return launches, profiled
 
 
-def transport_dump(root):
+def transport_dump(root, label="3 transport"):
     """The transport dump under ``root``: ``(path, unwrapped walk, dt, MB)``."""
     c = TRANSPORT
     dt = c["timestep"] * c["every"]
@@ -1158,7 +1299,7 @@ def transport_dump(root):
     torch_dumps.write_dump(path, c["box"], torch_dumps.walk_columns(wrapped, vel, names),
                            every=c["every"], shuffle_seed=2027)
     size_mb = path.stat().st_size / 1e6
-    phase("3 transport", f"dump: {sum(c['counts'])} atoms x {c['n_frames']} frames, {size_mb:.1f} "
+    phase(label, f"dump: {sum(c['counts'])} atoms x {c['n_frames']} frames, {size_mb:.1f} "
           f"MB written in {time.perf_counter() - t0:.1f} s")
     return path, unwrapped, dt, size_mb
 
@@ -2125,6 +2266,7 @@ def water_adf_vs_plain(feeds) -> dict:
         adf_pairs_histogram_reference,
         neighbor_extract_reference,
     )
+    from lammps_analysis_tpu_torch.parallel import sharded_ops
 
     if not feeds:
         raise RuntimeError("water: the atomistic ADF fed no frame batch")
@@ -2136,7 +2278,7 @@ def water_adf_vs_plain(feeds) -> dict:
         if route != "binned":
             raise RuntimeError(f"water: the ADF's extract routes to {route}, not binned")
         n_frames, n_atoms, _ = positions.shape
-        chunk = max(1, runner.LIST_BYTES // max(n_atoms * k_n * 20, 1))
+        chunk = max(1, sharded_ops.LIST_BYTES // max(n_atoms * k_n * 20, 1))
         for f0 in range(0, n_frames, chunk):
             pos = positions[f0 : f0 + chunk]
             args = (pos, sid, box, cutoff, k_n, n_species)
@@ -2348,16 +2490,275 @@ def water_main_path(card: str) -> dict:
     return dict(rdf_launches=rdf_launches, adf_launches=adf_launches, walls=walls, traces=traces,
                 cases=cases)
 
+# [5 mesh]: the calculators the mesh layer shards, by label: (experiment, class, arguments)
+MESH_CALLS = {
+    "RDF 64 x 10240": ("rdf", "RadialDistributionFunction", dict(
+        number_of_configurations=64, cutoff=BENCH["cutoff"], number_of_bins=BENCH["n_bins"], plot=False)),
+    "ADF 16 x 10240": ("adf", "AngularDistributionFunction", dict(
+        number_of_configurations=16, start=0, cutoff=ADF["cutoff"], number_of_bins=ADF["n_bins"],
+        plot=False)),
+    "Einstein 500 x 10240": ("transport", "EinsteinDiffusionCoefficients", dict(
+        data_range=TRANSPORT["data_range"], correlation_time=1, plot=False)),
+    "GK 500 x 10240": ("transport", "GreenKuboDiffusionCoefficients", dict(
+        data_range=TRANSPORT["data_range"], correlation_time=1, plot=False)),
+}
+MESH_RANKS = 4  # ranks that share the card in [5 mesh] (b)
 
-def kernel_record(name: str, launches: int, cases: list, main: dict) -> dict:
+
+def mesh_counters() -> dict:
+    """This process's kernel launches and plain-version calls, by record."""
+    from lammps_analysis_tpu_torch.ops import adf_kernel, rdf_kernel
+    from lammps_analysis_tpu_torch.ops.adf import adf_pairs_histogram_reference, neighbor_extract_reference
+    from lammps_analysis_tpu_torch.ops.rdf import rdf_histogram_reference
+
     return {
-        "name": name,
+        "rdf_histogram": rdf_kernel.launches,
+        "adf_neighbor_cells": adf_kernel.neighbor_extract_binned.launches,
+        "adf_neighbor_extract": adf_kernel.neighbor_extract_sweep.launches,
+        "adf_pairs_histogram": adf_kernel.adf_pairs_histogram.launches,
+        "plain": rdf_histogram_reference.calls + neighbor_extract_reference.calls
+        + adf_pairs_histogram_reference.calls,
+    }
+
+
+def zero_counters() -> None:
+    from lammps_analysis_tpu_torch.ops import adf_kernel, rdf_kernel
+    from lammps_analysis_tpu_torch.ops.adf import adf_pairs_histogram_reference, neighbor_extract_reference
+    from lammps_analysis_tpu_torch.ops.rdf import rdf_histogram_reference
+
+    rdf_kernel.launches = 0
+    for fn in (adf_kernel.neighbor_extract_binned, adf_kernel.neighbor_extract_sweep,
+               adf_kernel.adf_pairs_histogram):
+        fn.launches = 0
+    for fn in (rdf_histogram_reference, neighbor_extract_reference, adf_pairs_histogram_reference):
+        fn.calls = 0
+
+
+def mesh_run(fn) -> dict:
+    """``fn()`` with this process's counters set to 0 just before and read
+    just after: ``result``, ``wall`` (seconds, device synchronised),
+    ``collectives`` and their host ``seconds``, and the ``counts``."""
+    from lammps_analysis_tpu_torch.parallel import sharded_ops
+
+    zero_counters()
+    n0, s0 = sharded_ops.collectives, sharded_ops.collective_seconds
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    result = fn()
+    torch.cuda.synchronize()
+    return dict(result=result, wall=time.perf_counter() - t0, counts=mesh_counters(),
+                collectives=sharded_ops.collectives - n0,
+                seconds=sharded_ops.collective_seconds - s0)
+
+
+def mesh_world(root: str, two_d: bool) -> dict:
+    """One rank of ``[5 mesh]`` (or the process alone, without a group): the
+    RDF, ADF, Einstein and GK of ``MESH_CALLS`` over the default mesh
+    (first call, cache hit, the median of three forced calls), the DB's rows; with ``two_d``, on a
+    (2, ranks / 2) mesh (or (1, ranks)) the RDF calculator through K1's
+    rows and the sharded ADF of 16 frames x 10240 atoms through K2's center
+    stripes, on the binned route and once with the sweep forced."""
+    from lammps_analysis_tpu_torch.ops import adf_kernel
+    from lammps_analysis_tpu_torch.parallel import make_2d_mesh, multihost, sharded_adf_histogram, use_mesh
+
+    root = pathlib.Path(root)
+    exps = {
+        "rdf": ingest(root / "rdf", BENCH["counts"], 100, BENCH["box"][0], seed=2024),
+        "adf": ingest(root / "adf", ADF["counts"], 20, ADF["box"][0], seed=2025),
+        "transport": ingest_dump(root / "transport", root / "nacl.lammpstrj")[0],
+    }
+    out = {"calls": {}}
+    for label, (key, name, kw) in MESH_CALLS.items():
+        run = getattr(exps[key].run, name)
+        first = mesh_run(lambda: run(**kw).data_dict)
+        again = mesh_run(lambda: run(**kw).data_dict)
+        forced = sorted((mesh_run(lambda: run(force=True, **kw).data_dict) for _ in range(3)),
+                        key=lambda r: r["wall"])[1]  # the median of three
+        out["calls"][label] = dict(
+            first=first, hit=again["result"] == first["result"] and again["collectives"] == 0
+            and not any(again["counts"].values()), forced={k: v for k, v in forced.items() if k != "result"},
+        )
+    out["rows"] = {key: [c["name"] for c in exp.db.list_computations(exp.name)] for key, exp in exps.items()}
+    if two_d:
+        world = multihost.world_size()
+        mesh = make_2d_mesh(2, world // 2) if world >= 4 and world % 2 == 0 else make_2d_mesh(1, world)
+        key, name, kw = MESH_CALLS["RDF 64 x 10240"]
+        with use_mesh(mesh):
+            out["rdf 2d"] = mesh_run(lambda: getattr(exps[key].run, name)(force=True, **kw).data_dict)
+        pos, sid = make_case(ADF["counts"], 16, ADF["box"], 2030, torch.device(torch.cuda.current_device()))
+        route = adf_kernel.extract_route
+        for label in ("binned", "sweep"):
+            if label == "sweep":
+                adf_kernel.extract_route = lambda *args: "sweep"
+            try:
+                out[f"adf 2d {label}"] = mesh_run(lambda: sharded_adf_histogram(
+                    pos, sid, ADF["box"], ADF["cutoff"], ADF["n_bins"], 2, mesh=mesh).cpu().numpy())
+            finally:
+                adf_kernel.extract_route = route
+        out["mesh"] = dict(mesh.shape)
+    return out
+
+
+def mesh_compare(label: str, ours: dict, ref: dict) -> None:
+    """Hold a world's results to the process alone's: counts exactly, the ADF
+    within its allowance, transport within rtol 1e-5."""
+    for call, (_, name, _) in MESH_CALLS.items():
+        a, b = ours["calls"][call]["first"]["result"], ref["calls"][call]["first"]["result"]
+        if name == "RadialDistributionFunction":
+            if a != b:
+                raise RuntimeError(f"{label}: the {call} g(r) differs from the process alone's")
+        elif name == "AngularDistributionFunction":
+            for key in b:
+                check_hist(f"{label} {call} {key}", a[key]["adf"], b[key]["adf"])
+        elif name == "EinsteinDiffusionCoefficients":
+            torch_dumps.assert_einstein_close(a, b)
+        else:
+            torch_dumps.assert_gk_close(a, b)
+
+
+def mesh_report(label: str, worlds: list, ref: dict, expect_rows: dict) -> dict:
+    """Check every rank of a world: the results, kernels launched and no
+    plain call, cache hits, one DB row per computation; print each call's
+    walls and collectives beside the process alone's. Returns the launches
+    summed over the ranks."""
+    launches = {}
+    for rank, world in enumerate(worlds):
+        mesh_compare(f"{label} rank {rank}", world, ref)
+        if world["rows"] != expect_rows:
+            raise RuntimeError(f"{label} rank {rank}: DB rows {world['rows']}, expected {expect_rows}")
+        for call, r in world["calls"].items():
+            counts = r["first"]["counts"]
+            if counts["plain"] or not r["hit"]:
+                raise RuntimeError(f"{label} rank {rank} {call}: {counts['plain']} plain calls, "
+                                   f"cache hit {r['hit']}")
+            needed = {"RDF": ("rdf_histogram",), "ADF": ("adf_neighbor_cells", "adf_pairs_histogram")}
+            for record in needed.get(call.split()[0], ()):
+                if counts[record] < 1:
+                    raise RuntimeError(f"{label} rank {rank} {call}: {record} never launched")
+            for record, n in counts.items():
+                launches[record] = launches.get(record, 0) + n
+    for call in MESH_CALLS:
+        forced = [w["calls"][call]["forced"] for w in worlds]
+        first = [w["calls"][call]["first"] for w in worlds]
+        alone = ref["calls"][call]["forced"]["wall"]
+        per_rank = {k: [c["counts"][k] for c in first] for k in ("rdf_histogram", "adf_neighbor_cells",
+                                                                   "adf_pairs_histogram")}
+        phase("5 mesh", f"{label} {call}: equal to the process alone; forced call wall (median of 3) rank 0 "
+              f"{forced[0]['wall'] * 1e3:.3f} ms, slowest rank {max(f['wall'] for f in forced) * 1e3:.3f} ms "
+              f"(process alone {alone * 1e3:.3f} ms); {forced[0]['collectives']} collectives on rank 0 in "
+              f"{forced[0]['seconds'] * 1e3:.3f} ms of host time; first call {first[0]['wall']:.3f} s; "
+              f"launches by rank {per_rank}, 0 plain calls; second call a cache hit on every rank")
+    return launches
+
+
+def mesh_path(card: str) -> dict:
+    """``[5 mesh]``: (a) a world of 1 on NCCL, (b) ``MESH_RANKS`` ranks that
+    share the card over gloo, (c) one rank per card over NCCL when the
+    machine has two or more; each held to the process alone on the same
+    inputs. Returns the launches of (b) by kernel record (the 2-D runs' by
+    mode record), summed over its ranks."""
+    import importlib
+
+    from lammps_analysis_tpu_torch.parallel import multihost, sharded_adf_histogram
+
+    smoke = importlib.import_module("chip_smoke")  # the ranks import the rank body by name
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = pathlib.Path(tmp)
+        transport_dump(tmp, "5 mesh")
+        for sub in ("alone", "a", "b", "c"):
+            (tmp / sub).mkdir()
+            (tmp / sub / "nacl.lammpstrj").symlink_to(tmp / "nacl.lammpstrj")
+        t0 = time.perf_counter()
+        ref = smoke.mesh_world(str(tmp / "alone"), False)
+        pos, sid = make_case(ADF["counts"], 16, ADF["box"], 2030, torch.device("cuda"))
+        adf_2d_ref = sharded_adf_histogram(pos, sid, ADF["box"], ADF["cutoff"], ADF["n_bins"], 2).cpu().numpy()
+        phase("5 mesh", f"the process alone (no group): {time.perf_counter() - t0:.1f} s")
+        rows = {"rdf": ["RadialDistributionFunction"], "adf": ["AngularDistributionFunction"],
+                "transport": ["EinsteinDiffusionCoefficients", "GreenKuboDiffusionCoefficients"]}
+
+        t0 = time.perf_counter()
+        world_a = multihost.launch_local(1, smoke.mesh_world, str(tmp / "a"), False, backend="nccl",
+                                         device="cuda", timeout=400, collective_timeout=300)
+        phase("5 mesh", f"(a) a world of 1 rank on cuda:0, backend nccl, through the mesh code: "
+              f"{time.perf_counter() - t0:.1f} s with the process start")
+        mesh_report("(a) nccl x 1", world_a, ref, rows)
+
+        t0 = time.perf_counter()
+        world_b = multihost.launch_local(MESH_RANKS, smoke.mesh_world, str(tmp / "b"), True,
+                                         backend="gloo", device="cuda", timeout=600,
+                                         collective_timeout=300)
+        cards = min(MESH_RANKS, torch.cuda.device_count())
+        where = "sharing cuda:0" if cards == 1 else f"on {cards} cards (rank r on cuda:r)"
+        phase("5 mesh", f"(b) a world of {MESH_RANKS} ranks {where}, backend gloo (CUDA tensors "
+              f"staged through the host for each collective): {time.perf_counter() - t0:.1f} s with "
+              "the process starts")
+        launches = mesh_report(f"(b) gloo x {MESH_RANKS}", world_b, ref, rows)
+        launches.update(mesh_two_d(f"(b) gloo x {MESH_RANKS}", world_b, ref, adf_2d_ref))
+
+        n_cards = torch.cuda.device_count()
+        if n_cards >= 2:
+            t0 = time.perf_counter()
+            world_c = multihost.launch_local(n_cards, smoke.mesh_world, str(tmp / "c"), True,
+                                             backend="nccl", device="cuda", timeout=600,
+                                             collective_timeout=300)
+            phase("5 mesh", f"(c) a world of {n_cards} ranks, one a card, backend nccl: "
+                  f"{time.perf_counter() - t0:.1f} s with the process starts")
+            mesh_report(f"(c) nccl x {n_cards}", world_c, ref, rows)
+            mesh_two_d(f"(c) nccl x {n_cards}", world_c, ref, adf_2d_ref)
+        else:
+            phase("5 mesh", f"(c) not run: torch.cuda.device_count() is {n_cards} on this machine, and "
+                  "NCCL across cards needs two or more")
+    return launches
+
+
+def mesh_two_d(label: str, worlds: list, ref: dict, adf_ref) -> dict:
+    """Check the 2-D runs of every rank (K1's rows: the process alone's g(r);
+    K2's stripes, binned and swept: its ADF histogram) and print them;
+    return their launches summed over the ranks, by mode record."""
+    launches = {"rdf_histogram rows": 0, "adf_neighbor_cells stripe": 0,
+                "adf_neighbor_extract stripe": 0}
+    rdf_ref = ref["calls"]["RDF 64 x 10240"]["first"]["result"]
+    for rank, world in enumerate(worlds):
+        rdf = world["rdf 2d"]
+        if rdf["result"] != rdf_ref or rdf["counts"]["rdf_histogram"] < 1 or rdf["counts"]["plain"]:
+            raise RuntimeError(f"{label} rank {rank}: the 2-D RDF differs or skipped K1 ({rdf['counts']})")
+        launches["rdf_histogram rows"] += rdf["counts"]["rdf_histogram"]
+        for route, record in (("binned", "adf_neighbor_cells"), ("sweep", "adf_neighbor_extract")):
+            run = world[f"adf 2d {route}"]
+            check_hist(f"{label} rank {rank} 2-D ADF {route}", run["result"], adf_ref)
+            other = "adf_neighbor_extract" if route == "binned" else "adf_neighbor_cells"
+            if run["counts"][record] < 1 or run["counts"][other] or run["counts"]["plain"] \
+                    or run["counts"]["adf_pairs_histogram"] < 1:
+                raise RuntimeError(f"{label} rank {rank} 2-D ADF {route}: launches {run['counts']}")
+            launches[f"{record} stripe"] += run["counts"][record]
+    w = worlds[0]
+    phase("5 mesh", f"{label} 2-D mesh {w['mesh']}: the RDF calculator through K1's i-rows equal to the "
+          f"process alone (K1 launches by rank {[x['rdf 2d']['counts']['rdf_histogram'] for x in worlds]}, "
+          f"forced call wall rank 0 {w['rdf 2d']['wall'] * 1e3:.3f} ms, slowest "
+          f"{max(x['rdf 2d']['wall'] for x in worlds) * 1e3:.3f} ms, {w['rdf 2d']['collectives']} "
+          f"collectives in {w['rdf 2d']['seconds'] * 1e3:.3f} ms)")
+    for route in ("binned", "sweep"):
+        runs = [x[f"adf 2d {route}"] for x in worlds]
+        phase("5 mesh", f"{label} 2-D ADF 16 x 10240 through K2's center stripes, {route} route: within "
+              f"the ADF allowance of the process alone; extract launches by rank "
+              f"{[r['counts'][RECORD_OF_ROUTE[route]] for r in runs]}, angle kernel "
+              f"{[r['counts']['adf_pairs_histogram'] for r in runs]}, 0 plain calls; wall rank 0 "
+              f"{runs[0]['wall'] * 1e3:.3f} ms, slowest {max(r['wall'] for r in runs) * 1e3:.3f} ms, "
+              f"{runs[0]['collectives']} collectives in {runs[0]['seconds'] * 1e3:.3f} ms")
+    return launches
+
+
+def kernel_record(name: str, launches: int, cases: list, main: dict, mode: str = "") -> dict:
+    return {
+        "name": f"{name} {mode}".strip(),
         "route": "cuda",
         "source": CSRC + name + ".cu",
         "replaces": REPLACES[name],
         "launches": launches,
         "max_abs_err": max(c["max_diff"] for c in cases),
         "ms": main["ms"],
+        "timing": "cuda_events" if isinstance(main["ms"], EventMs) else "profiler",
         "plain_ms": main["plain_ms"],
         "bound_ms": main["bound_ms"],
         "bound_by": main["bound_by"],
@@ -2507,7 +2908,9 @@ def main() -> int:
     card = environment()
     build()
     rdf = kernel_vs_plain()
+    rows = kernel_rows()
     adf = adf_kernels_vs_plain()
+    stripes = extract_stripes()
     rdf_launches, _ = main_path(card)
     adf_launches, _ = adf_main_path(card)
     transport = transport_main_path(card)
@@ -2520,6 +2923,10 @@ def main() -> int:
     rdf["w water molecular RDF"] = water["cases"]["rdf"]
     adf["extract binned w water ADF"] = water["cases"]["extract"]
     adf["angles w water ADF"] = water["cases"]["angles"]
+    mesh = mesh_path(card)
+    rdf_launches += mesh["rdf_histogram"]
+    for name in adf_launches:
+        adf_launches[name] += mesh[name]
 
     def cases(prefix):
         return [v for k, v in adf.items() if k.startswith(prefix)]
@@ -2534,6 +2941,11 @@ def main() -> int:
                       cases("extract sweep"), adf[f"extract sweep {one_frame}"]),
         kernel_record("adf_pairs_histogram", adf_launches["adf_pairs_histogram"],
                       cases("angles"), adf["angles a1 main-path launch, 1 frame"]),
+        kernel_record("rdf_histogram", mesh["rdf_histogram rows"], [rows], rows, "rows"),
+        kernel_record("adf_neighbor_cells", mesh["adf_neighbor_cells stripe"], [stripes["binned"]],
+                      stripes["binned"], "stripe"),
+        kernel_record("adf_neighbor_extract", mesh["adf_neighbor_extract stripe"], [stripes["sweep"]],
+                      stripes["sweep"], "stripe"),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -20,6 +20,11 @@ distinct diffusion pair streams two species' slabs together
 ``Unwrapped_Positions`` stream whose dataset is not materialised is unwrapped
 on the fly from the wrapped positions (``_stream_unwrapped_fused``).
 Plotting is not ported yet.
+
+In a process group every rank runs the calculator (the sharded ops split the
+work over the default mesh); rank 0 alone decides the cache lookup, runs the
+dependency check's transformations and stores the result, and every rank
+returns the same Computation (``parallel/multihost.py::rank_zero``).
 """
 
 from __future__ import annotations
@@ -36,6 +41,7 @@ from ..database.properties import mdsuite_properties as mp
 from ..database.results_db import Computation
 from ..database.trajectory_store import join_path
 from ..memory.planner import BatchPlan
+from ..parallel.multihost import rank_zero
 from ..pipeline.prefetch import prefetch_to_device
 from ..transformations.coordinate_transforms import CoordinateUnwrapper
 from ..transformations.registry import transformation_for_property
@@ -123,7 +129,8 @@ class Calculator(abc.ABC):
             cache_args = dict(self.args)
             if force:
                 exp.db.delete_computations(exp.name, self.name, cache_args)
-            comp = exp.db.find_computation(
+            # rank 0 decides hit or miss for every rank
+            comp = rank_zero(exp.db.find_computation)(
                 exp.name, self.name, cache_args, exp.version
             )
             if comp is None:
@@ -217,6 +224,7 @@ class TrajectoryCalculator(Calculator):
         return [int(t) for t in tau]
 
     # ------------------------------------------------------------ dependencies
+    @rank_zero
     def _run_dependency_check(self, species: Optional[List[str]] = None):
         """Run the transformation that produces a missing or incomplete
         loaded property (port of ``trajectory_calculator.py:117-194``): per

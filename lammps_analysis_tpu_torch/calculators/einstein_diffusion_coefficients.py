@@ -11,7 +11,8 @@ linear fit, D = slope / 6. ``Unwrapped_Positions`` stream from the store to
 the device slab by slab (the dependency check runs ``CoordinateUnwrapper``
 first when they are missing, or with ``config.fuse_streaming`` the stream
 unwraps the wrapped positions on the fly and stores nothing); the comb MSD
-runs there in float32 with float64 sums; the fit runs on the host.
+runs there in float32 with float64 sums, its particles split over the
+default mesh (``sharded_windowed_msd``); the fit runs on the host.
 """
 
 from __future__ import annotations
@@ -23,7 +24,7 @@ import numpy as np
 
 from ..database.properties import mdsuite_properties as mp
 from ..memory.planner import BatchPlanner
-from ..ops import msd as msd_ops
+from ..parallel.sharded_ops import sharded_windowed_msd
 from ..utils.fitting import fit_einstein_curve
 from .base import TrajectoryCalculator
 
@@ -104,7 +105,7 @@ class EinsteinDiffusionCoefficients(TrajectoryCalculator):
             for slab in self._stream_property(
                 sp, self.loaded_property.name, data_range, a["correlation_time"]
             ):
-                s, _ = msd_ops.windowed_msd_sum(
+                s, _ = sharded_windowed_msd(
                     slab, self.tau_values, data_range, a["correlation_time"]
                 )
                 msd_sum += s.cpu().numpy()

@@ -3,7 +3,8 @@
 Counterpart of ``lammps_analysis_tpu/calculators/green_kubo_diffusion_coefficients.py``
 (port of ``mdsuite/calculators/green_kubo_self_diffusion_coefficients.py``)
 with the same arguments, cache key and result layout: per-window biased VACF
-(the FFT estimator of ``ops/correlation.py``, on the device), unit scaling to
+(the FFT estimator of ``ops/correlation.py``, on the device, its particles
+split over the default mesh by ``sharded_windowed_acf``), unit scaling to
 m^2/s^2, the reference's ``n_windows * (n_particles + 1)`` normalisation,
 D = (1/3) * cumulative-trapezoid integral at ``integration_range - 1``, SEM
 over per-window integrals. The ACF sums accumulate in float64 on the host.
@@ -19,7 +20,7 @@ from scipy.integrate import cumulative_trapezoid
 
 from ..database.properties import mdsuite_properties as mp
 from ..memory.planner import BatchPlanner
-from ..ops import correlation
+from ..parallel.sharded_ops import sharded_windowed_acf
 from .base import TrajectoryCalculator
 
 log = logging.getLogger(__name__)
@@ -99,7 +100,7 @@ class GreenKuboDiffusionCoefficients(TrajectoryCalculator):
                 sp, self.loaded_property.name, data_range,
                 a["correlation_time"], with_info=True,
             ):
-                s, per_window = correlation.windowed_acf_sum(
+                s, per_window = sharded_windowed_acf(
                     slab, data_range, a["correlation_time"], budget, tau=tau
                 )
                 acf_sum += vel_scale * s.cpu().numpy()

@@ -3,8 +3,9 @@
 Counterpart of ``lammps_analysis_tpu/calculators/radial_distribution_function.py``
 with the same arguments, frame sampling, cache key and result layout
 (``{"Na_Cl": {"x": ..., "y": ...}}``, x in nm). Frame batches stream from the
-store through the prefetch pipeline to the pair-histogram kernel; the
-integer counts accumulate on the device and come to the host once per run,
+store through the prefetch pipeline to the pair-histogram kernel, their
+frames split over the default mesh (``sharded_rdf_histogram``); the integer
+counts accumulate on the device and come to the host once per run,
 where the prefactors turn them into g(r).
 """
 

@@ -39,6 +39,17 @@
 //    count are cleared and the count written at the center's own row. The
 //    padding cell's block writes its centers' empty rows, so every row is
 //    written and the wrapper allocates the outputs without clearing them.
+// Center stripe (stage 1 of sharded_adf_histogram_2d; the TPU kernel's
+// centers= mode, pallas_adf.py:232): a launch may list only the centers c0 <=
+// i < c0 + n_rows into (F, n_rows, K) outputs whose row i - c0 is row i of the
+// full launch. Steps 1-3 still bin every atom (every atom is a candidate). In
+// step 4 a warp takes a window of up to 32 slots of its cell's run, ballots
+// which of them are stripe centers and tests those in groups of kGroup: a
+// stripe's centers are scattered over the cells, so windows of kGroup slots
+// would leave most groups nearly empty. A full launch takes windows of kGroup
+// slots, the groups above. The padding cell writes the empty rows of the
+// stripe's padding atoms only.
+//
 // The route needs three cells or more on every axis (so the 27 cells are
 // distinct) and K <= kMaxK (the staging); ops/adf_kernel.py::
 // extract_route decides.
@@ -73,6 +84,8 @@ struct Params {
   double lx, ly, lz;
   int n_atoms, n_species, k_n;
   int nx, ny, nz, n_cells;  // n_cells = nx * ny * nz; cell n_cells holds padding
+  int c0, n_rows;           // the stripe of centers listed
+  int window;               // run slots a warp takes at a time: kGroup, or 32 for a stripe
 };
 
 __device__ __forceinline__ int axis_cell(float x, double edge, int n) {
@@ -143,8 +156,8 @@ __global__ void scatter_atoms(const float* __restrict__ pos, const int* __restri
 
 __device__ __forceinline__ int wrap(int c, int n) { return c < 0 ? c + n : (c >= n ? c - n : c); }
 
-// 4. the lists: one block per cell; its warps take groups of kGroup of the
-// cell's centers in turn
+// 4. the lists: one block per cell; its warps take windows of the cell's run in
+// turn, and the window's stripe centers in groups of kGroup
 __global__ void __launch_bounds__(kThreads)
 cells_extract(const float* __restrict__ pos, const int* __restrict__ sid,
               const float4* __restrict__ sorted, const int* __restrict__ start,
@@ -163,14 +176,17 @@ cells_extract(const float* __restrict__ pos, const int* __restrict__ sid,
   const float4* frame_sorted = sorted + f * p.n_atoms;
   const float* frame = pos + f * p.n_atoms * 3;
   const int* st = start + f * (p.n_cells + 2);
-  const int64_t frame_row = f * p.n_atoms;
-  const int c0 = st[cell], c1 = st[cell + 1];
-  if (c0 + warp * kGroup >= c1) return;  // whole warps; no block barrier below
+  const int64_t frame_row = f * p.n_rows - p.c0;  // + i: center i's output row
+  const int c_end = p.c0 + p.n_rows;
+  const int width = p.window;
+  const int run_lo = st[cell], run_hi = st[cell + 1];
+  if (run_lo + warp * width >= run_hi) return;  // whole warps; no block barrier below
 
   if (cell == p.n_cells) {  // padding: empty rows
-    for (int g0 = c0 + warp * kGroup; g0 < c1; g0 += kWarps * kGroup) {
-      for (int q = g0; q < min(g0 + kGroup, c1); ++q) {
+    for (int w0 = run_lo + warp * width; w0 < run_hi; w0 += kWarps * width) {
+      for (int q = w0; q < min(w0 + width, run_hi); ++q) {
         const int i = __float_as_int(frame_sorted[q].w);
+        if (i < p.c0 || i >= c_end) continue;  // warp-uniform
         const int64_t row = (frame_row + i) * k;
         for (int s = lane; s < k; s += 32) {
           rx[row + s] = 0.f;
@@ -211,77 +227,93 @@ cells_extract(const float* __restrict__ pos, const int* __restrict__ sid,
   }
   const int n_cand = pre[18];
 
-  for (int g0 = c0 + warp * kGroup; g0 < c1; g0 += kWarps * kGroup) {
-    const int g = min(kGroup, c1 - g0);
-    float4 ctr[kGroup];
-    int found[kGroup];
-#pragma unroll
-    for (int c = 0; c < kGroup; ++c) {
-      ctr[c] = frame_sorted[g0 + min(c, g - 1)];  // the same address in every lane
-      found[c] = 0;
+  for (int w0 = run_lo + warp * width; w0 < run_hi; w0 += kWarps * width) {
+    const int wn = min(width, run_hi - w0);
+    bool mine = false;
+    if (lane < wn) {
+      const int i = __float_as_int(frame_sorted[w0 + lane].w);
+      mine = i >= p.c0 && i < c_end;
     }
-
-    for (int f0 = 0; f0 < n_cand; f0 += 32) {
-      const int fl = f0 + lane;
-      int q = 0;
+    unsigned int pending = __ballot_sync(0xffffffffu, mine);  // the window's stripe centers
+    while (pending != 0u) {  // warp-uniform
+      const int first = __ffs(pending) - 1;
+      int g = 0;
+      float4 ctr[kGroup];
+      int found[kGroup];
 #pragma unroll
-      for (int r = 0; r < 18; ++r) {
-        if (fl >= pre[r]) q = lo[r] + (fl - pre[r]);
+      for (int c = 0; c < kGroup; ++c) {  // the next kGroup of them, in run order
+        int b = first;
+        if (pending != 0u) {
+          b = __ffs(pending) - 1;
+          pending &= pending - 1u;
+          ++g;
+        }
+        ctr[c] = frame_sorted[w0 + b];  // the same address in every lane
+        found[c] = 0;
       }
-      const bool live = fl < n_cand;
-      const float4 a = frame_sorted[live ? q : g0];
-      const int j = __float_as_int(a.w);
-      const float tj = live ? p.t : -1.f;  // s >= 0 > -1: a dead lane is never in
+
+      for (int f0 = 0; f0 < n_cand; f0 += 32) {
+        const int fl = f0 + lane;
+        int q = 0;
+#pragma unroll
+        for (int r = 0; r < 18; ++r) {
+          if (fl >= pre[r]) q = lo[r] + (fl - pre[r]);
+        }
+        const bool live = fl < n_cand;
+        const float4 a = frame_sorted[live ? q : w0];
+        const int j = __float_as_int(a.w);
+        const float tj = live ? p.t : -1.f;  // s >= 0 > -1: a dead lane is never in
+#pragma unroll
+        for (int c = 0; c < kGroup; ++c) {
+          const float dx = min_image(__fsub_rn(a.x, ctr[c].x), p.bx, p.ibx);
+          const float dy = min_image(__fsub_rn(a.y, ctr[c].y), p.by, p.iby);
+          const float dz = min_image(__fsub_rn(a.z, ctr[c].z), p.bz, p.ibz);
+          const bool in = c < g && squared_norm(dx, dy, dz) <= tj && j != __float_as_int(ctr[c].w);
+          const unsigned int mask = __ballot_sync(0xffffffffu, in);
+          if (in) {
+            const int slot = found[c] + __popc(mask & below);
+            if (slot < k) stage[c * k + slot] = j;
+          }
+          found[c] += __popc(mask);
+        }
+      }
+      __syncwarp();
+
 #pragma unroll
       for (int c = 0; c < kGroup; ++c) {
-        const float dx = min_image(__fsub_rn(a.x, ctr[c].x), p.bx, p.ibx);
-        const float dy = min_image(__fsub_rn(a.y, ctr[c].y), p.by, p.iby);
-        const float dz = min_image(__fsub_rn(a.z, ctr[c].z), p.bz, p.ibz);
-        const bool in = c < g && squared_norm(dx, dy, dz) <= tj && j != __float_as_int(ctr[c].w);
-        const unsigned int mask = __ballot_sync(0xffffffffu, in);
-        if (in) {
-          const int slot = found[c] + __popc(mask & below);
-          if (slot < k) stage[c * k + slot] = j;
+        if (c >= g) break;  // warp-uniform
+        const int i = __float_as_int(ctr[c].w);
+        const int m = min(found[c], k);
+        const int* buf = stage + c * k;
+        const int64_t row = (frame_row + i) * k;
+        // the neighbor in staged slot e goes to slot rank(e): the number of
+        // staged indices below its own (indices are distinct)
+        for (int e = lane; e < m; e += 32) {
+          const int j = buf[e];
+          const float xj = frame[3 * j], yj = frame[3 * j + 1], zj = frame[3 * j + 2];
+          const int sj = sid[j];
+          int rank = 0;
+          for (int u = 0; u < m; ++u) rank += buf[u] < j ? 1 : 0;
+          const float ox = min_image(__fsub_rn(xj, ctr[c].x), p.bx, p.ibx);
+          const float oy = min_image(__fsub_rn(yj, ctr[c].y), p.by, p.iby);
+          const float oz = min_image(__fsub_rn(zj, ctr[c].z), p.bz, p.ibz);
+          rx[row + rank] = ox;
+          ry[row + rank] = oy;
+          rz[row + rank] = oz;
+          dd[row + rank] = __fsqrt_rn(squared_norm(ox, oy, oz));
+          sid_out[row + rank] = sj;
         }
-        found[c] += __popc(mask);
+        for (int e = m + lane; e < k; e += 32) {
+          rx[row + e] = 0.f;
+          ry[row + e] = 0.f;
+          rz[row + e] = 0.f;
+          dd[row + e] = 0.f;
+          sid_out[row + e] = -1;
+        }
+        if (lane == 0) counts[frame_row + i] = found[c];
       }
+      __syncwarp();  // the staging is read before the next group
     }
-    __syncwarp();
-
-#pragma unroll
-    for (int c = 0; c < kGroup; ++c) {
-      if (c >= g) break;  // warp-uniform
-      const int i = __float_as_int(ctr[c].w);
-      const int m = min(found[c], k);
-      const int* buf = stage + c * k;
-      const int64_t row = (frame_row + i) * k;
-      // the neighbor in staged slot e goes to slot rank(e): the number of
-      // staged indices below its own (indices are distinct)
-      for (int e = lane; e < m; e += 32) {
-        const int j = buf[e];
-        const float xj = frame[3 * j], yj = frame[3 * j + 1], zj = frame[3 * j + 2];
-        const int sj = sid[j];
-        int rank = 0;
-        for (int u = 0; u < m; ++u) rank += buf[u] < j ? 1 : 0;
-        const float ox = min_image(__fsub_rn(xj, ctr[c].x), p.bx, p.ibx);
-        const float oy = min_image(__fsub_rn(yj, ctr[c].y), p.by, p.iby);
-        const float oz = min_image(__fsub_rn(zj, ctr[c].z), p.bz, p.ibz);
-        rx[row + rank] = ox;
-        ry[row + rank] = oy;
-        rz[row + rank] = oz;
-        dd[row + rank] = __fsqrt_rn(squared_norm(ox, oy, oz));
-        sid_out[row + rank] = sj;
-      }
-      for (int e = m + lane; e < k; e += 32) {
-        rx[row + e] = 0.f;
-        ry[row + e] = 0.f;
-        rz[row + e] = 0.f;
-        dd[row + e] = 0.f;
-        sid_out[row + e] = -1;
-      }
-      if (lane == 0) counts[frame_row + i] = found[c];
-    }
-    __syncwarp();  // the staging is read before the next group
   }
 }
 
@@ -299,10 +331,11 @@ int64_t adf_neighbor_cells_scratch_ints(int64_t n_atoms, int64_t n_cells) {
   return 2 * n_atoms + (n_cells + 1) + (n_cells + 2);
 }
 
-// Writes the neighbor lists of positions (n_frames, n_atoms, 3) float32 with
-// species ids (n_atoms,) int32 into rx, ry, rz, d, sid_out (n_frames, n_atoms,
-// k_n) and counts (n_frames, n_atoms), over nx x ny x nz cells of the box
-// (three or more each); t is the squared-distance threshold of the cutoff.
+// Writes the neighbor lists of the centers c0 .. c0 + n_rows - 1 of positions
+// (n_frames, n_atoms, 3) float32 with species ids (n_atoms,) int32 into rx, ry,
+// rz, d, sid_out (n_frames, n_rows, k_n) and counts (n_frames, n_rows) (c0 = 0,
+// n_rows = n_atoms: every center), over nx x ny x nz cells of the box (three or
+// more each); t is the squared-distance threshold of the cutoff.
 // Scratch: `ints` of n_frames * adf_neighbor_cells_scratch_ints(...) int32 and
 // `sorted` of n_frames * n_atoms float4. Runs on `stream`, allocates nothing,
 // does not synchronise; returns cudaGetLastError().
@@ -310,16 +343,20 @@ int adf_neighbor_cells_launch(const void* positions, const void* species_id,
                               void* rx, void* ry, void* rz, void* d, void* sid_out,
                               void* counts, void* ints, void* sorted,
                               int64_t n_frames, int64_t n_atoms, int64_t n_species,
-                              int64_t k_n, int64_t nx, int64_t ny, int64_t nz,
-                              float bx, float by, float bz, float ibx, float iby,
-                              float ibz, float t, void* stream) {
+                              int64_t k_n, int64_t c0, int64_t n_rows, int64_t nx,
+                              int64_t ny, int64_t nz, float bx, float by, float bz,
+                              float ibx, float iby, float ibz, float t, void* stream) {
   if (k_n > kMaxK || nx < 3 || ny < 3 || nz < 3) return cudaErrorInvalidValue;
+  if (c0 < 0 || n_rows < 0 || c0 + n_rows > n_atoms) return cudaErrorInvalidValue;
+  if (n_rows == 0 || n_frames == 0) return cudaSuccess;
   const int n_cells = static_cast<int>(nx * ny * nz);
+  const bool stripe = c0 != 0 || n_rows != n_atoms;
   const Params p{bx, by, bz, ibx, iby, ibz, t,
                  static_cast<double>(bx), static_cast<double>(by), static_cast<double>(bz),
                  static_cast<int>(n_atoms), static_cast<int>(n_species),
                  static_cast<int>(k_n),
-                 static_cast<int>(nx), static_cast<int>(ny), static_cast<int>(nz), n_cells};
+                 static_cast<int>(nx), static_cast<int>(ny), static_cast<int>(nz), n_cells,
+                 static_cast<int>(c0), static_cast<int>(n_rows), stripe ? 32 : kGroup};
   const auto s = static_cast<cudaStream_t>(stream);
   const size_t smem = extract_smem(k_n);
   cudaError_t err = cudaFuncSetAttribute(cells_extract,
@@ -330,7 +367,7 @@ int adf_neighbor_cells_launch(const void* positions, const void* species_id,
   const unsigned int atom_blocks =
       static_cast<unsigned int>((n_atoms + kBinThreads - 1) / kBinThreads);
   const unsigned int cell_blocks = static_cast<unsigned int>(n_cells + 1);
-  const int64_t list = n_atoms * k_n;
+  const int64_t list = n_rows * k_n;
   for (int64_t f0 = 0; f0 < n_frames; f0 += kMaxGridY) {
     const int64_t nf = n_frames - f0 < kMaxGridY ? n_frames - f0 : kMaxGridY;
     int* base = static_cast<int*>(ints) + f0 * per_frame;
@@ -352,7 +389,7 @@ int adf_neighbor_cells_launch(const void* positions, const void* species_id,
         static_cast<float*>(rx) + f0 * list, static_cast<float*>(ry) + f0 * list,
         static_cast<float*>(rz) + f0 * list, static_cast<float*>(d) + f0 * list,
         static_cast<int*>(sid_out) + f0 * list,
-        static_cast<int*>(counts) + f0 * n_atoms, p);
+        static_cast<int*>(counts) + f0 * n_rows, p);
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
   }

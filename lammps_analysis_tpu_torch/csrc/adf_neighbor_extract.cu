@@ -20,6 +20,12 @@
 //   (ops/geometry.py::squared_cutoff: exactly the pairs with sqrt(s) < cutoff);
 //   d  = sqrt(s), for kept pairs only
 //
+// Center stripe (stage 1 of sharded_adf_histogram_2d; the TPU kernel's
+// centers= mode, pallas_adf.py:232): a launch may list only the centers c0 <=
+// i < c0 + n_rows, still against every atom, into (F, n_rows, K) outputs
+// whose row i - c0 is row i of the full launch; the self pair is left out by
+// global index. The grid covers the stripe's centers only.
+//
 // This is the sweep route, for boxes with fewer than three cells of the
 // cutoff on some axis and for lists too wide for the binned route
 // (csrc/adf_neighbor_cells.cu); ops/adf_kernel.py::extract_route decides.
@@ -60,6 +66,7 @@ struct Params {
   float ibx, iby, ibz;
   float t;  // squared-distance threshold of the cutoff
   int n_atoms, n_species, k_n;
+  int c0, n_rows;  // the stripe of centers listed
 };
 
 __global__ void __launch_bounds__(kThreads)
@@ -75,15 +82,15 @@ neighbor_extract_kernel(const float* __restrict__ pos, const int* __restrict__ s
   const int warp = threadIdx.x >> 5;
   const unsigned int below = (1u << lane) - 1u;
   const float* frame = pos + static_cast<int64_t>(blockIdx.y) * n * 3;
-  const int64_t frame_row = static_cast<int64_t>(blockIdx.y) * n;
+  const int64_t frame_row = static_cast<int64_t>(blockIdx.y) * p.n_rows - p.c0;
 
   float cx[kCentersPerWarp], cy[kCentersPerWarp], cz[kCentersPerWarp];
   int ci[kCentersPerWarp], found[kCentersPerWarp];
   bool live[kCentersPerWarp];
 #pragma unroll
   for (int c = 0; c < kCentersPerWarp; ++c) {
-    const int i = blockIdx.x * kCentersPerBlock + warp * kCentersPerWarp + c;
-    const bool in = i < n;
+    const int i = p.c0 + blockIdx.x * kCentersPerBlock + warp * kCentersPerWarp + c;
+    const bool in = i < p.c0 + p.n_rows;
     const int s = in ? sid[i] : -1;
     ci[c] = i;
     live[c] = in && s >= 0 && s < p.n_species;
@@ -138,7 +145,7 @@ neighbor_extract_kernel(const float* __restrict__ pos, const int* __restrict__ s
 
 #pragma unroll
   for (int c = 0; c < kCentersPerWarp; ++c) {
-    if (ci[c] >= n) continue;
+    if (ci[c] >= p.c0 + p.n_rows) continue;
     const int64_t row = (frame_row + ci[c]) * p.k_n;
     for (int s = min(found[c], p.k_n) + lane; s < p.k_n; s += 32) {
       rx[row + s] = 0.f;
@@ -155,26 +162,28 @@ neighbor_extract_kernel(const float* __restrict__ pos, const int* __restrict__ s
 
 extern "C" {
 
-// Writes the neighbor lists of positions (n_frames, n_atoms, 3) float32 with
-// species ids (n_atoms,) int32 into rx, ry, rz, d (n_frames, n_atoms, k_n)
-// float32, sid_out (n_frames, n_atoms, k_n) int32 and counts (n_frames,
-// n_atoms) int32, on `stream`; t is the squared-distance threshold of the
-// cutoff. Allocates nothing and does not synchronise;
-// returns cudaGetLastError().
+// Writes the neighbor lists of the centers c0 .. c0 + n_rows - 1 of positions
+// (n_frames, n_atoms, 3) float32 with species ids (n_atoms,) int32 into rx, ry,
+// rz, d (n_frames, n_rows, k_n) float32, sid_out (n_frames, n_rows, k_n) int32
+// and counts (n_frames, n_rows) int32, on `stream` (c0 = 0, n_rows = n_atoms:
+// every center); t is the squared-distance threshold of the cutoff. Allocates
+// nothing and does not synchronise; returns cudaGetLastError().
 int adf_neighbor_extract_launch(const void* positions, const void* species_id,
                                 void* rx, void* ry, void* rz, void* d,
                                 void* sid_out, void* counts, int64_t n_frames,
                                 int64_t n_atoms, int64_t n_species, int64_t k_n,
-                                float bx, float by, float bz, float ibx,
-                                float iby, float ibz, float t,
+                                int64_t c0, int64_t n_rows, float bx, float by,
+                                float bz, float ibx, float iby, float ibz, float t,
                                 void* stream) {
+  if (c0 < 0 || n_rows < 0 || c0 + n_rows > n_atoms) return cudaErrorInvalidValue;
+  if (n_rows == 0 || n_frames == 0) return cudaSuccess;
   const Params p{bx, by, bz, ibx, iby, ibz, t,
                  static_cast<int>(n_atoms), static_cast<int>(n_species),
-                 static_cast<int>(k_n)};
+                 static_cast<int>(k_n), static_cast<int>(c0), static_cast<int>(n_rows)};
   const auto s = static_cast<cudaStream_t>(stream);
   const unsigned int blocks =
-      static_cast<unsigned int>((n_atoms + kCentersPerBlock - 1) / kCentersPerBlock);
-  const int64_t list = n_atoms * k_n;
+      static_cast<unsigned int>((n_rows + kCentersPerBlock - 1) / kCentersPerBlock);
+  const int64_t list = n_rows * k_n;
   for (int64_t f0 = 0; f0 < n_frames; f0 += kMaxGridY) {
     const dim3 grid(blocks, static_cast<unsigned int>(
                                 n_frames - f0 < kMaxGridY ? n_frames - f0 : kMaxGridY));
@@ -184,7 +193,7 @@ int adf_neighbor_extract_launch(const void* positions, const void* species_id,
         static_cast<float*>(rx) + f0 * list, static_cast<float*>(ry) + f0 * list,
         static_cast<float*>(rz) + f0 * list, static_cast<float*>(d) + f0 * list,
         static_cast<int*>(sid_out) + f0 * list,
-        static_cast<int*>(counts) + f0 * n_atoms, p);
+        static_cast<int*>(counts) + f0 * n_rows, p);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return err;
   }

@@ -133,6 +133,12 @@ class Computation:
 class ResultsDatabase:
     """One SQLite file per project, shared by all experiments."""
 
+    #: the methods that write the file; the others read
+    WRITES = frozenset({
+        "ensure_experiment", "bump_experiment_version", "set_active", "set_attribute",
+        "set_project_attribute", "store_computation", "delete_computations",
+    })
+
     def __init__(self, path: Union[str, pathlib.Path]):
         self.path = pathlib.Path(path)
         self.path.parent.mkdir(parents=True, exist_ok=True)

@@ -46,6 +46,11 @@ def join_path(*parts: str) -> str:
 class TrajectoryStore:
     """Append-able npy tensor store for trajectories, rooted at a directory."""
 
+    #: the methods that write files; the others read
+    WRITES = frozenset({
+        "set_cursor", "initialize", "ensure_dataset", "add_chunk", "append", "drop",
+    })
+
     def __init__(self, path: Union[str, pathlib.Path], dtype: str = "float32"):
         self.path = pathlib.Path(path)
         self.dtype = np.dtype(dtype)

@@ -28,6 +28,7 @@ from ..database.trajectory_store import TrajectoryStore, join_path
 from ..data.elements import mass_of
 from ..file_io.base import FileProcessor
 from ..memory.planner import BatchPlanner
+from ..parallel.multihost import rank_zero, shared
 from ..utils.constants import DatasetKeys
 from ..utils.units import UnitSystem, resolve_units
 
@@ -137,12 +138,12 @@ class Experiment:
         else:
             base = pathlib.Path(storage_path or ".")
             self.path = base / name
-            self.db = ResultsDatabase(self.path / "project.db")
+            self.db = shared(ResultsDatabase, self.path / "project.db")
         self.path.mkdir(parents=True, exist_ok=True)
         (self.path / "figures").mkdir(exist_ok=True)
         self.db.ensure_experiment(name)
 
-        self.store = TrajectoryStore(self.path / "database", dtype="float32")
+        self.store = shared(TrajectoryStore, self.path / "database", dtype="float32")
         self.planner = BatchPlanner()
 
         if time_step is not None:
@@ -330,6 +331,7 @@ class Experiment:
         self.species = species
 
     # -------------------------------------------------------------- ingestion
+    @rank_zero
     def add_data(
         self,
         simulation_data,
@@ -343,7 +345,7 @@ class Experiment:
         idempotent via the read-files ledger (re-adding the same source is a
         no-op unless ``force``), marks the ledger only after a successful
         read, bumps the experiment version so cached calculator results are
-        invalidated.
+        invalidated. In a process group rank 0 ingests and the others wait.
         """
         if isinstance(simulation_data, (str, pathlib.Path)):
             processor = _processor_for_path(simulation_data)
@@ -535,8 +537,10 @@ class Experiment:
 
         return RunComputation(experiment=self)
 
+    @rank_zero
     def cls_transformation_run(self, transformation, species=None):
-        """Run a transformation instance on this experiment.
+        """Run a transformation instance on this experiment (on rank 0 alone
+        in a process group: it writes the store).
 
         Reference analog: ``experiment.py:270-282``.
         """

@@ -5,7 +5,11 @@ the windowed calculators' ``data_range`` floor), the atom-axis minibatch of
 one window, transformation slabs, the pairwise i-tile and the window count.
 The budget comes from the configured device: the GPU's total memory times
 ``config.device_memory_fraction`` on CUDA, physical host RAM times
-``config.memory_fraction`` on the CPU. It needs neither psutil nor jax.
+``config.memory_fraction`` on the CPU, shared out among the ranks of a
+process group that use the same device (``multihost.ranks_per_device``):
+four ranks on one card plan a quarter each. The total, not the free memory,
+so every rank of a group of like cards plans the same batches. It needs
+neither psutil nor jax.
 """
 
 from __future__ import annotations
@@ -18,6 +22,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..parallel.multihost import ranks_per_device
 from ..utils.config import config, get_device
 from ..utils.scale_functions import resolve_scale_function
 
@@ -54,9 +59,9 @@ class BatchPlanner:
         device = get_device()
         if device.type == "cuda":
             total = torch.cuda.mem_get_info(device)[1]
-            return int(total * config.device_memory_fraction)
+            return int(total * config.device_memory_fraction / ranks_per_device())
         host = os.sysconf("SC_PAGE_SIZE") * os.sysconf("SC_PHYS_PAGES")
-        return int(host * config.memory_fraction)
+        return int(host * config.memory_fraction / ranks_per_device())
 
     def plan(
         self,

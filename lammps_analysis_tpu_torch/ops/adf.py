@@ -107,6 +107,7 @@ def neighbor_extract_reference(
     cutoff: float,
     k_n: int,
     n_species: int,
+    centers=None,
 ):
     """Plain per-center neighbor lists, the plain version of K2.
 
@@ -118,22 +119,28 @@ def neighbor_extract_reference(
     ``(F, N, k_n)`` float32 with ``r = pos_j - pos_i``, ``sid`` ``(F, N,
     k_n)`` int32, empty slots 0 and sid -1; ``counts`` ``(F, N)`` int32 the
     true number in the cutoff, which may exceed ``k_n``.
+
+    ``centers=(c0, c1)`` (the center stripe of one rank of
+    ``sharded_adf_histogram_2d``) lists only the centers ``c0 <= i < c1``,
+    still against every atom, in ``(F, c1 - c0, ...)`` outputs: row ``i -
+    c0`` is row ``i`` of the full extract.
     """
     neighbor_extract_reference.calls += 1
     (bx, by, bz), (ibx, iby, ibz) = box_scalars(box, "the neighbor extract")
     cut = float(np.float32(cutoff))
     f, n, _ = positions.shape
+    c0, c1 = (0, n) if centers is None else centers
     device = positions.device
-    out = [torch.zeros((f, n, k_n), dtype=torch.float32, device=device) for _ in range(4)]
-    sid_out = torch.full((f, n, k_n), -1, dtype=torch.int32, device=device)
-    counts = torch.zeros((f, n), dtype=torch.int32, device=device)
+    out = [torch.zeros((f, c1 - c0, k_n), dtype=torch.float32, device=device) for _ in range(4)]
+    sid_out = torch.full((f, c1 - c0, k_n), -1, dtype=torch.int32, device=device)
+    counts = torch.zeros((f, c1 - c0), dtype=torch.int32, device=device)
     sid = _valid_species(species_id, n_species)
     valid = sid >= 0
     x, y, z = positions.unbind(-1)  # (F, N) each
     atom = torch.arange(n, device=device)
     block = max(1, min(n, _BLOCK_ELEMENTS // max(f * n, 1)))
-    for i0 in range(0, n, block):
-        i1 = min(i0 + block, n)
+    for i0 in range(c0, c1, block):
+        i1 = min(i0 + block, c1)
         dx = minimum_image(x[:, None, :] - x[:, i0:i1, None], bx, ibx)  # (F, B, N)
         dy = minimum_image(y[:, None, :] - y[:, i0:i1, None], by, iby)
         dz = minimum_image(z[:, None, :] - z[:, i0:i1, None], bz, ibz)
@@ -145,10 +152,10 @@ def neighbor_extract_reference(
             & (atom[None, None, :] != atom[i0:i1, None])
         )
         slot = torch.cumsum(mask, dim=2, dtype=torch.int32) - 1
-        counts[:, i0:i1] = slot[..., -1] + 1
+        counts[:, i0 - c0 : i1 - c0] = slot[..., -1] + 1
         fi, ci, ji = (mask & (slot < k_n)).nonzero(as_tuple=True)
         si = slot[fi, ci, ji].to(torch.int64)
-        rows = (fi, ci + i0, si)
+        rows = (fi, ci + i0 - c0, si)
         for dst, src in zip(out, (dx, dy, dz, d)):
             dst[rows] = src[fi, ci, ji]
         sid_out[rows] = sid[ji].to(torch.int32)

@@ -10,7 +10,10 @@ routes with one contract, ``ops/adf.py::neighbor_extract_reference``'s:
   center against every atom.
 
 ``neighbor_extract`` takes the route that ``extract_route`` names, a pure
-function of the shapes. ``adf_pairs_histogram`` wraps
+function of the shapes. Both routes take ``centers=(c0, c1)``: the lists of
+one stripe of centers, by atom index, against every atom (the stage 1 of
+``parallel/sharded_ops.py::sharded_adf_histogram_2d``; the TPU kernel's
+``centers=`` mode, ``pallas_adf.py:232``). ``adf_pairs_histogram`` wraps
 ``csrc/adf_pairs_histogram.cu`` (counterpart of ``adf_pairs_histogram_pallas``
 with ``fold=True``); ``pairs_split`` (pure) cuts each center's pairs into
 chunks and sizes the grid, and ``pairs_histogram_route`` reports what a
@@ -54,14 +57,14 @@ def _library() -> ctypes.CDLL:
     lib = _build.load_library()
     lib.adf_neighbor_extract_launch.argtypes = (
         [ctypes.c_void_p] * 8
-        + [ctypes.c_int64] * 4
+        + [ctypes.c_int64] * 6
         + [ctypes.c_float] * 7
         + [ctypes.c_void_p]
     )
     lib.adf_neighbor_extract_launch.restype = ctypes.c_int
     lib.adf_neighbor_cells_launch.argtypes = (
         [ctypes.c_void_p] * 10
-        + [ctypes.c_int64] * 7
+        + [ctypes.c_int64] * 9
         + [ctypes.c_float] * 7
         + [ctypes.c_void_p]
     )
@@ -120,7 +123,8 @@ def extract_route(box, cutoff: float, k_n: int) -> str:
     return "sweep"
 
 
-def _check_extract(positions, species_id, cutoff, k_n, n_species) -> None:
+def _check_extract(positions, species_id, cutoff, k_n, n_species, centers=None) -> tuple:
+    """Checks the extract's inputs; returns the stripe ``(c0, c1)``."""
     if not isinstance(positions, torch.Tensor):
         raise TypeError("positions must be a torch tensor")
     if positions.dim() != 3 or positions.shape[2] != 3:
@@ -134,18 +138,24 @@ def _check_extract(positions, species_id, cutoff, k_n, n_species) -> None:
         )
     if positions.shape[1] >= 2**31:
         raise ValueError(f"{positions.shape[1]} atoms: the kernels index atoms with int32")
+    n_atoms = positions.shape[1]
+    c0, c1 = (0, n_atoms) if centers is None else (int(centers[0]), int(centers[1]))
+    if not 0 <= c0 <= c1 <= n_atoms:
+        raise ValueError(f"centers must satisfy 0 <= c0 <= c1 <= {n_atoms}, got {centers}")
+    return c0, c1
 
 
-def _empty_lists(n_frames, n_atoms, k_n, device, extra_floats=0, extra_ints=0):
-    """``(rx, ry, rz, d, sid, counts)`` uncleared, from two allocations, with
-    ``extra_floats`` (16-byte aligned) and ``extra_ints`` more of scratch."""
-    size = n_frames * n_atoms * k_n
+def _empty_lists(n_frames, n_rows, k_n, device, extra_floats=0, extra_ints=0):
+    """``(rx, ry, rz, d, sid, counts)`` of ``n_rows`` centers uncleared, from
+    two allocations, with ``extra_floats`` (16-byte aligned) and
+    ``extra_ints`` more of scratch."""
+    size = n_frames * n_rows * k_n
     floats = torch.empty(4 * size + extra_floats, dtype=torch.float32, device=device)
-    ints = torch.empty(size + n_frames * n_atoms + extra_ints, dtype=torch.int32, device=device)
-    lists = floats[: 4 * size].view(4, n_frames, n_atoms, k_n).unbind(0)
-    sid_n = ints[:size].view(n_frames, n_atoms, k_n)
-    counts = ints[size : size + n_frames * n_atoms].view(n_frames, n_atoms)
-    return (*lists, sid_n, counts), floats[4 * size :], ints[size + n_frames * n_atoms :]
+    ints = torch.empty(size + n_frames * n_rows + extra_ints, dtype=torch.int32, device=device)
+    lists = floats[: 4 * size].view(4, n_frames, n_rows, k_n).unbind(0)
+    sid_n = ints[:size].view(n_frames, n_rows, k_n)
+    counts = ints[size : size + n_frames * n_rows].view(n_frames, n_rows)
+    return (*lists, sid_n, counts), floats[4 * size :], ints[size + n_frames * n_rows :]
 
 
 @functools.lru_cache(maxsize=64)
@@ -173,6 +183,7 @@ def neighbor_extract(
     cutoff: float,
     k_n: int,
     n_species: int,
+    centers=None,
 ):
     """Per-center neighbor lists ``(rx, ry, rz, d, sid, counts)``.
 
@@ -183,11 +194,20 @@ def neighbor_extract(
     ``counts`` ``(F, N)`` int32 the true in-cutoff count (above ``k_n`` the
     list is cut: the caller retries with a larger K). On CUDA tensors the
     route is ``extract_route``'s.
+
+    ``centers=(c0, c1)`` lists only the centers ``c0 <= i < c1`` against
+    every atom: ``(F, c1 - c0, k_n)`` lists whose row ``i - c0`` equals row
+    ``i`` of the full extract (the self pair is left out by global index).
+    The stripe is by atom index, not by a spatial sort as in the JAX
+    package: the angle histogram is the same for any partition of the
+    centers, the stripe's center species are ``species_id[c0:c1]`` for every
+    frame, and an index stripe of a well-mixed layout carries about the same
+    work on every rank whatever the box's density profile.
     """
-    _check_extract(positions, species_id, cutoff, k_n, n_species)
+    _check_extract(positions, species_id, cutoff, k_n, n_species, centers)
     route = extract_route(_box_key(box), cutoff, k_n)
     extract = neighbor_extract_binned if route == "binned" else neighbor_extract_sweep
-    return extract(positions, species_id, box, cutoff, k_n, n_species)
+    return extract(positions, species_id, box, cutoff, k_n, n_species, centers)
 
 
 def neighbor_extract_sweep(
@@ -197,25 +217,27 @@ def neighbor_extract_sweep(
     cutoff: float,
     k_n: int,
     n_species: int,
+    centers=None,
 ):
-    """:func:`neighbor_extract` through the sweep kernel, on any box."""
-    _check_extract(positions, species_id, cutoff, k_n, n_species)
+    """:func:`neighbor_extract` through the sweep kernel, on any box; the
+    grid covers the stripe's centers only."""
+    c0, c1 = _check_extract(positions, species_id, cutoff, k_n, n_species, centers)
     if positions.device.type == "cpu":
         return neighbor_extract_reference(
-            positions, species_id, box, cutoff, k_n, n_species
+            positions, species_id, box, cutoff, k_n, n_species, (c0, c1)
         )
     device = positions.device
     _check_device(device)
     (bx, by, bz), (ibx, iby, ibz), threshold, _ = _extract_geometry(_box_key(box), cutoff)
     n_frames, n_atoms, _ = positions.shape
-    out, _, _ = _empty_lists(n_frames, n_atoms, k_n, device)
-    if n_frames == 0 or n_atoms == 0:
+    out, _, _ = _empty_lists(n_frames, c1 - c0, k_n, device)
+    if n_frames == 0 or c0 == c1:
         return out
     lib = _library()
     with torch.cuda.device(device):
         err = lib.adf_neighbor_extract_launch(
             positions.data_ptr(), species_id.data_ptr(), *(t.data_ptr() for t in out),
-            n_frames, n_atoms, n_species, k_n,
+            n_frames, n_atoms, n_species, k_n, c0, c1 - c0,
             bx, by, bz, ibx, iby, ibz, threshold,
             torch.cuda.current_stream(device).cuda_stream,
         )
@@ -234,16 +256,18 @@ def neighbor_extract_binned(
     cutoff: float,
     k_n: int,
     n_species: int,
+    centers=None,
 ):
     """:func:`neighbor_extract` through the cell-list kernel.
 
     Needs three or more cells on every axis and ``k_n <= BINNED_MAX_K`` on
     CUDA tensors (``ValueError`` otherwise); coordinates may lie in any image.
+    A stripe bins every atom into the cells and lists the stripe's centers.
     """
-    _check_extract(positions, species_id, cutoff, k_n, n_species)
+    c0, c1 = _check_extract(positions, species_id, cutoff, k_n, n_species, centers)
     if positions.device.type == "cpu":
         return neighbor_extract_reference(
-            positions, species_id, box, cutoff, k_n, n_species
+            positions, species_id, box, cutoff, k_n, n_species, (c0, c1)
         )
     device = positions.device
     _check_device(device)
@@ -258,15 +282,15 @@ def neighbor_extract_binned(
     per_frame = lib.adf_neighbor_cells_scratch_ints(n_atoms, n_cells[0] * n_cells[1] * n_cells[2])
     # scratch: the cell-sorted atoms as float4, the per-frame ints
     out, sorted_atoms, ints = _empty_lists(
-        n_frames, n_atoms, k_n, device, 4 * n_frames * n_atoms, n_frames * per_frame
+        n_frames, c1 - c0, k_n, device, 4 * n_frames * n_atoms, n_frames * per_frame
     )
-    if n_frames == 0 or n_atoms == 0:
+    if n_frames == 0 or c0 == c1:
         return out
     with torch.cuda.device(device):
         err = lib.adf_neighbor_cells_launch(
             positions.data_ptr(), species_id.data_ptr(), *(t.data_ptr() for t in out),
             ints.data_ptr(), sorted_atoms.data_ptr(),
-            n_frames, n_atoms, n_species, k_n, *n_cells,
+            n_frames, n_atoms, n_species, k_n, c0, c1 - c0, *n_cells,
             bx, by, bz, ibx, iby, ibz, threshold,
             torch.cuda.current_stream(device).cuda_stream,
         )

@@ -70,6 +70,7 @@ def rdf_histogram_reference(
     n_bins: int,
     n_species: int,
     i_block: int = 128,
+    rows=None,
 ) -> torch.Tensor:
     """Plain torch per-species-pair distance histogram, ``(n_pairs, n_bins)`` int64.
 
@@ -77,20 +78,24 @@ def rdf_histogram_reference(
     ``species_id`` ``(N,)`` with -1 for padding (an id of ``n_species`` or
     more counts as padding too). Each pair j > i with both species in
     ``[0, n_species)`` and minimum-image distance below ``cutoff`` counts once.
-    Works i-block by i-block on ``(F, i_block, N - i0)`` tensors (j starts at
-    the block's first row; every earlier j fails j > i).
+    ``rows=(i0, i1)`` counts only the pairs with ``i0 <= i < i1`` (still
+    against every j > i), so the histograms of stripes that cover ``[0, N)``
+    add up to the full one. Works i-block by i-block on ``(F, i_block, N -
+    b0)`` tensors (j starts at the block's first row ``b0``; every earlier j
+    fails j > i).
     """
     rdf_histogram_reference.calls += 1
     (bx, by, bz), (ibx, iby, ibz), cut, inv_bin = rdf_scalars(box, cutoff, n_bins)
     _, n, _ = positions.shape
+    r0, r1 = (0, n) if rows is None else rows
     n_pairs = n_species * (n_species + 1) // 2
     device = positions.device
     hist = torch.zeros(n_pairs * n_bins, dtype=torch.int64, device=device)
     sid = species_id.to(torch.int64)
     sid = torch.where(sid < n_species, sid, -1)
     x, y, z = positions.unbind(-1)  # (F, N) each
-    for i0 in range(0, n, i_block):
-        i1 = min(i0 + i_block, n)
+    for i0 in range(r0, r1, i_block):
+        i1 = min(i0 + i_block, r1)
         dx = x[:, i0:i1, None] - x[:, None, i0:]  # (F, B, N - i0)
         dy = y[:, i0:i1, None] - y[:, None, i0:]
         dz = z[:, i0:i1, None] - z[:, None, i0:]

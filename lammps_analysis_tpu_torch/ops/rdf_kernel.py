@@ -36,7 +36,7 @@ def _library() -> ctypes.CDLL:
     lib = _build.load_library()
     lib.rdf_histogram_launch.argtypes = (
         [ctypes.c_void_p] * 3
-        + [ctypes.c_int64] * 4
+        + [ctypes.c_int64] * 6
         + [ctypes.c_float] * 8
         + [ctypes.c_void_p]
     )
@@ -98,6 +98,7 @@ def rdf_histogram(
     cutoff: float,
     n_bins: int,
     n_species: int,
+    rows=None,
 ) -> torch.Tensor:
     """Per-species-pair distance histograms, ``(n_pairs, n_bins)`` int64.
 
@@ -107,27 +108,36 @@ def rdf_histogram(
     counts as padding) and minimum-image distance below
     ``cutoff`` counts once, in bin ``min(floor(d * n_bins / cutoff),
     n_bins - 1)`` of pair ``(min(s_i, s_j), max(s_i, s_j))``.
+
+    ``rows=(i0, i1)`` counts only the pairs whose first atom lies in the
+    stripe ``i0 <= i < i1``, against every j > i (the global triangle): the
+    i-rows of one rank of ``sharded_rdf_histogram_2d``. Stripes that cover
+    ``[0, N)`` add up to the full histogram exactly; the kernel launches only
+    the stripe's i-tiles.
     """
     global launches
     _check(positions, species_id, box, cutoff, n_bins, n_species)
+    n_frames, n_atoms, _ = positions.shape
+    r0, r1 = (0, n_atoms) if rows is None else (int(rows[0]), int(rows[1]))
+    if not 0 <= r0 <= r1 <= n_atoms:
+        raise ValueError(f"rows must satisfy 0 <= i0 <= i1 <= {n_atoms}, got {rows}")
     if positions.device.type == "cpu":
         return rdf_histogram_reference(
-            positions, species_id, box, cutoff, n_bins, n_species
+            positions, species_id, box, cutoff, n_bins, n_species, rows=(r0, r1)
         )
     if positions.device.type != "cuda":
         raise ValueError(f"no kernel for device {positions.device}")
     (bx, by, bz), (ibx, iby, ibz), cut, inv_bin = rdf_scalars(box, cutoff, n_bins)
     threshold = squared_cutoff(cut)
-    n_frames, n_atoms, _ = positions.shape
     n_pairs = n_species * (n_species + 1) // 2
     out = torch.zeros((n_pairs, n_bins), dtype=torch.int64, device=positions.device)
-    if n_frames == 0 or n_atoms == 0:
+    if n_frames == 0 or r0 == r1:
         return out
     lib = _library()
     with torch.cuda.device(positions.device):
         err = lib.rdf_histogram_launch(
             positions.data_ptr(), species_id.data_ptr(), out.data_ptr(),
-            n_frames, n_atoms, n_species, n_bins,
+            n_frames, n_atoms, n_species, n_bins, r0, r1,
             bx, by, bz, ibx, iby, ibz, threshold, inv_bin,
             torch.cuda.current_stream(positions.device).cuda_stream,
         )

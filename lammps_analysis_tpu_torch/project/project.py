@@ -5,7 +5,8 @@ Counterpart of ``lammps_analysis_tpu/project/project.py`` (itself a port of
 one SQLite results DB; experiments register themselves there and re-opening
 ``Project(name=...)`` restores everything. ``project.run.X(...)`` runs a
 computation over all *active* experiments and returns a dict keyed by
-experiment name.
+experiment name. In a process group rank 0 alone writes the DB
+(``parallel/multihost.py::shared``).
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ from typing import Dict, List, Optional, Union
 from ..database.results_db import ResultsDatabase
 from ..experiment.experiment import Experiment
 from ..experiment.run import RunComputation
+from ..parallel.multihost import shared
 from ..utils.units import UnitSystem
 
 log = logging.getLogger(__name__)
@@ -46,7 +48,7 @@ class Project:
         self.name = name
         self.path = pathlib.Path(storage_path) / name
         self.path.mkdir(parents=True, exist_ok=True)
-        self.db = ResultsDatabase(self.path / "project.db")
+        self.db = shared(ResultsDatabase, self.path / "project.db")
         self.description = description  # setter reads file paths (None ok)
 
         self.attach_file_logger()

@@ -30,7 +30,7 @@ from lammps_analysis_tpu.ops.pallas_adf import (
 )
 from lammps_analysis_tpu_torch.ops import adf as port_adf
 from lammps_analysis_tpu_torch.ops import adf_kernel
-from lammps_analysis_tpu_torch.parallel import sharded_ops
+from lammps_analysis_tpu_torch.parallel import make_data_mesh, sharded_ops
 
 torch.set_num_threads(1)
 
@@ -277,5 +277,10 @@ def test_plan_sizes_k_from_density_and_escalates_once():
 
 
 def test_runner_refuses_a_mesh():
-    with pytest.raises(NotImplementedError, match="multi-GPU slice"):
+    """The runner takes the port's meshes (``parallel/mesh.py``) and refuses
+    anything else; a mesh of more ranks than the process group has is
+    refused where it is made."""
+    with pytest.raises(TypeError, match="make_data_mesh"):
         sharded_ops.AdfBatchRunner(8, torch.zeros(8, dtype=torch.int32), [5.0] * 3, 2.0, 10, 1, mesh=object())
+    with pytest.raises(ValueError, match="a mesh spans every rank"):
+        make_data_mesh(4)

@@ -20,6 +20,11 @@ the conductivity path and the molecular path (a small water box from a TRR,
 tolerance), the spatial distribution function (counts within the SDF's
 tolerance: ``arccos``/``atan2`` may round apart by an ulp) and the fused
 unwrap stream (on the card equal to the card's materialised run bit for bit).
+The two stripe modes of the multi-device layer, K1's i-row range and K2's
+center stripe on both routes, must equal their plain versions and the rows
+of the full launch exactly; the sharded ops in a world of four ranks that
+share the card (gloo) and the calculators in a world of one on NCCL must
+give the one-process result (``tests/torch_worlds.py``).
 Marked ``cuda``; without a CUDA device every test skips. On a machine with a
 card: ``python -m pytest tests/test_torch_kernels_cuda.py -m cuda --noconftest``.
 """
@@ -536,3 +541,91 @@ def test_fused_einstein_on_the_card_equals_the_materialised_run(cuda, tmp_path, 
         assert not exp.store.check_existence("Na/Unwrapped_Positions")
     assert results["cuda"] == materialised.data_dict
     assert_einstein_close(results["cuda"], results["cpu"])
+
+
+# ------------------------------------------------------ the multi-device layer
+@pytest.mark.parametrize(
+    "counts, box, cutoff, n_bins, edges",
+    [
+        ([640, 640], (20.0, 20.0, 20.0), 9.9, 500, (0, 640, 1280)),
+        ([400, 350, 245], (30.0, 33.0, 36.0), 9.9, 75, (0, 1, 130, 500, 500, 997, 1000)),
+        ([1500, 1100], (25.0, 25.0, 25.0), 12.4, 200, (0, 867, 1734, 2600)),
+    ],
+    ids=["halves", "ragged-and-empty", "thirds"],
+)
+def test_rdf_row_range_matches_plain_and_adds_up(cuda, counts, box, cutoff, n_bins, edges):
+    pos, sid = _case(counts, 2, box, seed=7, device=cuda)
+    args = (pos, sid, box, cutoff, n_bins, len(counts))
+    total = torch.zeros_like(rdf_histogram_reference(*args))
+    for lo, hi in zip(edges[:-1], edges[1:]):
+        launches = rdf_kernel.launches
+        stripe = rdf_kernel.rdf_histogram(*args, rows=(lo, hi))
+        torch.cuda.synchronize()
+        assert rdf_kernel.launches == launches + (hi > lo)
+        assert torch.equal(stripe, rdf_histogram_reference(*args, rows=(lo, hi)))
+        total += stripe
+    assert torch.equal(total, rdf_kernel.rdf_histogram(*args))
+
+
+@pytest.mark.parametrize("route", ["binned", "sweep"])
+@pytest.mark.parametrize("parts", [1, 2, 4])
+def test_center_stripe_matches_plain_and_the_full_launch(cuda, route, parts):
+    counts, box, cutoff, k_n = [640, 640], (20.0, 20.0, 20.0), 3.6, 96  # no center saturates
+    pos, sid, args = _adf_lists(counts, 2, box, cutoff, k_n, 9, cuda)
+    extract = getattr(adf_kernel, f"neighbor_extract_{route}")
+    full = extract(*args)
+    assert int(full[5].max()) <= k_n
+    edges = np.linspace(0, pos.shape[1], parts + 1).astype(int)
+    for lo, hi in zip(edges[:-1], edges[1:]):
+        launches = extract.launches
+        stripe = extract(*args, centers=(int(lo), int(hi)))
+        torch.cuda.synchronize()
+        assert extract.launches == launches + 1
+        plain = neighbor_extract_reference(*args, centers=(int(lo), int(hi)))
+        for a, b, c in zip(stripe, plain, full):
+            assert torch.equal(a, b) and torch.equal(a, c[:, lo:hi])
+
+
+def test_sharded_ops_in_a_world_sharing_the_card(cuda, monkeypatch):
+    """Four ranks on the one card (gloo staging through the host): every
+    sharded op, the 2-D ones on a (2, 2) mesh through K1's rows and K2's
+    stripes, equals the one-process run on the card; the kernels ran on
+    every rank and no plain version did."""
+    import torch_worlds
+    from lammps_analysis_tpu_torch.parallel import multihost
+    from lammps_analysis_tpu_torch.utils.config import config
+
+    monkeypatch.setattr(config, "device", "cuda")
+    world = multihost.launch_local(4, torch_worlds.op_world, backend="gloo", device="cuda",
+                                   timeout=600)
+    ref = torch_worlds.one_device_ops()
+    for rank in world:
+        assert (rank["plain calls"] == 0).all() and (rank["launches"][[0, 3]] > 0).all()
+        for key in ("rdf all", "rdf remainder", "rdf few frames", "rdf 2d", "rdf 2d routed"):
+            np.testing.assert_array_equal(rank[key], ref["rdf all" if "2d" in key else key])
+        for key in ("adf all", "adf remainder", "adf few frames", "adf saturated",
+                    "adf stripes", "adf stripes routed"):
+            _assert_adf_close(torch.from_numpy(rank[key]), torch.from_numpy(ref[key.replace(" routed", "")]))
+        for key in ("msd", "msd remainder", "msd empty rank", "acf", "acf empty rank"):
+            np.testing.assert_allclose(rank[key], ref[key], rtol=1e-5, atol=1e-5 * np.abs(ref[key]).max())
+
+
+def test_a_world_of_one_on_nccl_gives_the_no_group_result(cuda, tmp_path, monkeypatch):
+    """The calculators through the mesh code in a world of one rank on NCCL
+    (the collectives run) against the same calls without a group."""
+    import torch_worlds
+    from lammps_analysis_tpu_torch.parallel import multihost
+    from lammps_analysis_tpu_torch.utils.config import config
+    from torch_dumps import assert_einstein_close, assert_gk_close
+
+    monkeypatch.setattr(config, "device", "cuda")
+    (world,) = multihost.launch_local(1, torch_worlds.calculators, tmp_path / "world",
+                                      backend="nccl", device="cuda", timeout=600)
+    ref = torch_worlds.calculators(tmp_path / "alone")
+    assert world["RadialDistributionFunction"] == ref["RadialDistributionFunction"]
+    for key, value in ref["AngularDistributionFunction"].items():
+        _assert_adf_close(torch.tensor(world["AngularDistributionFunction"][key]["adf"]),
+                          torch.tensor(value["adf"]))
+    for name in ("EinsteinDiffusionCoefficients", "walk Einstein"):
+        assert_einstein_close(world[name], ref[name])
+    assert_gk_close(world["GreenKuboDiffusionCoefficients"], ref["GreenKuboDiffusionCoefficients"])
