@@ -27,7 +27,14 @@ Phases, one line each (any failure raises and the exit code is not 0):
      rows that fit K and on ``counts``), with the routes' times side by side;
      the center stripe (the 2-D ADF's mode) of both routes on 8 frames x
      10240 atoms: stripes of 1, 2 and 4 equal to the plain version and to the
-     rows of the full launch, the first of two timed with its bound;
+     rows of the full launch, the first of two timed with its bound; the
+     ``idx`` output on both routes (16 x 10240) and open boundaries on the
+     sweep (a 10240-atom droplet, no box), every output equal to the plain
+     version bit for bit; the sorted route, z and brick sorts, at the
+     wide-list shape (``WIDE``: 2 x 32768 atoms, 64 A box, cutoff 10 A, K =
+     1024): equal to the plain sorted extract bit for bit, no overflow under
+     the sort's bound, every atom's neighbor set equal to the sweep's; each
+     mode's device time beside the sweep's and one bound, the widest window;
    * ``[2 angles]`` the ADF angle histogram on those lists, K > 1024 too,
      a frame of mixed widths (a dense cluster among first shells), 64 frames
      in one launch and seeded lists with 0, 1, 2, 32, 33, K and more entries
@@ -43,6 +50,20 @@ Phases, one line each (any failure raises and the exit code is not 0):
    * ``[3 main]`` the RDF, 64 frames x 10240 atoms, 500 bins;
    * ``[3 adf]`` the ADF, 16 frames x 10240 atoms, cutoff 3.6 A, 500 bins,
      through the binned extract (16 launches, no sweep, no plain call);
+   * ``[3 adf-wide]`` the ADF calculator at ``WIDE`` (2 frames): K = 512
+     binned and saturated, then K = 1024 on the brick-sorted route, held to
+     the same call on the sweep (the ADF allowance), forced walls of both,
+     the device's idle share; ``adf_histogram`` one-shot at 2 x 10240 atoms,
+     cutoff 10 A (the z sort) against the sweep's; ``adf_histogram`` and
+     ``neighbor_indices`` with ``box=None`` on the droplet and
+     ``neighbor_indices`` on ``[3 adf]`` frames (binned), against the plain
+     versions;
+   * ``[3 orchestration]`` ``plot=True`` on the ``[3 main]`` RDF writes its
+     HTML (the panels hold the result), one forced RDF call under
+     ``utils.profiling.device_trace`` with an ``annotate`` span leaves a
+     Chrome trace naming K1's kernel and the span; ``exp.time_series.Energies``
+     on the ``[3 flux]`` experiment against float64 sums of the stored
+     arrays; the ``Report``;
    * ``[3 transport]`` the transport path from a file: a LAMMPS dump of the
      same system (500 frames, shuffled ids, wrapped positions, a random walk
      of 0.3 A a frame per axis whose step is exactly the written velocity
@@ -137,7 +158,8 @@ the angle kernel at several chunk sizes (``adf_kernel.PAIRS_CHUNK``) on the
 one-frame launch, the mixed frame, K = 1076 and 16 main-path frames.
 
 The second-to-last line is a JSON summary of the kernels (times, launches on
-the main paths, the water path's included, bounds), the last line the
+the main paths, the water path's included, bounds; every record must have
+launched on a main path), the last line the
 device record ``{"ok": true, "device": {...}}``. Without a CUDA device the
 script exits non-zero before printing either.
 """
@@ -192,6 +214,13 @@ BENCH = dict(counts=[5120, 5120], box=(40.0, 40.0, 40.0), cutoff=19.9, n_bins=50
 # its ADF first-shell workload (bench.py:192-229): the same system, cutoff 3.6 A
 ADF = dict(counts=[5120, 5120], box=(40.0, 40.0, 40.0), cutoff=3.6, n_bins=500)
 ADF_RANGE = 3.15  # radians, ops/adf.py::ADF_BIN_RANGE
+# wide neighbor lists: the same density (0.125 A^-3 here, 0.16 in the ADF
+# box) at a 10 A cutoff, ~520 neighbors a center, K = 1024: too wide for the
+# binned route, so the sorted route; 32768 atoms sort by (z-slab, y), 10240 by z
+WIDE = dict(counts=[16384, 16384], box=(64.0, 64.0, 64.0), cutoff=10.0, n_bins=500, k_n=1024)
+WIDE_Z = dict(counts=[5120, 5120], box=(40.0, 40.0, 40.0), cutoff=10.0, n_bins=500, k_n=1024)
+# open boundaries: a droplet of 10240 atoms (radius 26.9 A, 0.125 A^-3), first shell
+DROPLET = dict(counts=[5120, 5120], radius=26.9, cutoff=3.6, n_bins=500, k_n=128)
 # the transport path's dump: the same system, 500 frames written every 10
 # steps of 0.002 ps (metal units), a random walk of 0.3 A a frame per axis
 TRANSPORT = dict(counts=[5120, 5120], box=40.0, n_frames=500, timestep=0.002,
@@ -519,16 +548,63 @@ def needed_tests(pos, sid, box, cutoff, n_species, centers=None) -> int:
     return int((occ_c * occ[:, hood].sum(-1)).sum())
 
 
-def extract_bound(pos, sid, box, cutoff, n_species, k_n, counts, centers=None):
-    """The neighbor extract's bound, one for both routes: the function's
-    work, not a route's (for a stripe, its centers' tests and rows)."""
+def extract_bound(pos, sid, box, cutoff, n_species, k_n, counts, centers=None, idx=False):
+    """The neighbor extract's bound, one for every route: the function's
+    work, not a route's (for a stripe, its centers' tests and rows; with
+    ``idx``, 4 more bytes a slot)."""
     f, n, _ = pos.shape
     c0, c1 = centers or (0, n)
     tests = needed_tests(pos, sid, box, cutoff, n_species, centers)
     # ~22 float32 operations a test (as the RDF's), the square root of a kept one
     flops = 22 * tests + int(counts.sum())
-    n_bytes = f * n * 12 + n * 4 + f * (c1 - c0) * (k_n * 20 + 4)
+    n_bytes = f * n * 12 + n * 4 + f * (c1 - c0) * (k_n * (24 if idx else 20) + 4)
     return bound(flops, n_bytes)
+
+
+def open_needed_tests(pos, cutoff) -> int:
+    """Distance tests the extract needs with open boundaries: for every cell
+    of a grid of cutoff-wide cells over the atoms' bounding box, its atoms
+    times the atoms of its (up to 27) neighbor cells, nothing wrapping."""
+    f, n, _ = pos.shape
+    total = 0
+    for fr in range(f):
+        p = pos[fr].double()
+        lo = p.min(0).values
+        dims = torch.clamp(torch.floor((p.max(0).values - lo) / cutoff), min=1).long() + 1
+        cell = torch.minimum(torch.floor((p - lo) / cutoff).long(), dims - 1)
+        occ = torch.zeros(tuple(dims.tolist()), dtype=torch.float64, device=pos.device)
+        occ.index_put_(tuple(cell.T), torch.ones(n, dtype=torch.float64, device=pos.device),
+                       accumulate=True)
+        hood = torch.nn.functional.conv3d(occ[None, None], torch.ones((1, 1, 3, 3, 3), dtype=torch.float64,
+                                          device=pos.device), padding=1)[0, 0]
+        total += int((occ * hood).sum())
+    return total
+
+
+def droplet(n_frames, seed, device):
+    """``DROPLET``: atoms uniform in a sphere (no box), Na first, and their ids."""
+    c = DROPLET
+    n = sum(c["counts"])
+    rng = np.random.default_rng(seed)
+    v = rng.normal(size=(n_frames, n, 3))
+    v *= (c["radius"] * rng.uniform(0, 1, (n_frames, n, 1)) ** (1 / 3)) / np.linalg.norm(v, axis=-1, keepdims=True)
+    sid = np.repeat(np.arange(2), c["counts"]).astype(np.int32)
+    return (torch.from_numpy(v.astype(np.float32)).to(device), torch.from_numpy(sid).to(device))
+
+
+def by_displacement(lists, counts):
+    """``(rx, ry, rz, d, sid)`` with each row's listed slots ordered by
+    (rx, ry, rz), empty slots last: a form in which two extracts with the same
+    neighbor sets are equal whatever their slot order."""
+    rx, ry, rz = lists[:3]
+    listed = torch.arange(rx.shape[2], device=rx.device) < counts.clamp(max=rx.shape[2])[..., None]
+    order = None
+    for key in (rz, ry, rx):  # stable sorts, least significant key first
+        k = torch.where(listed, key, torch.inf)
+        k = k if order is None else torch.gather(k, 2, order)
+        step = torch.sort(k, dim=2, stable=True).indices
+        order = step if order is None else torch.gather(order, 2, step)
+    return [torch.gather(t, 2, order) for t in lists[:5]]
 
 
 def stripes_of(n: int, parts: int) -> list:
@@ -632,6 +708,127 @@ def extract_stripes() -> dict:
               f"the first of 2 stripes {ms:.4f} ms on the device against the full launch's "
               f"{full_ms:.4f} ms ({ms / full_ms:.2f} x), bound {bound_ms:.4f} ms ({bound_by}; "
               f"{100 * bound_ms / ms:.1f} % of it), plain {plain_ms:.3f} ms")
+    return records
+
+
+def extract_modes() -> dict:
+    """``[2 extract]`` K2's modes: the ``idx`` output on both routes (16 x
+    10240, first shell) and open boundaries on the sweep (2 frames of the
+    10240-atom droplet, with idx), all outputs equal to the plain versions
+    bit for bit; the sorted route, z and brick, at the wide-list shape (2 x
+    32768 atoms, 64 A box, cutoff 10 A, K = 1024): equal to the plain sorted
+    extract bit for bit (lists, ``sid_sorted``, no overflow under the sort's
+    bound), each atom's neighbor set equal to the sweep's, the windows' widest
+    block against the bound; device times beside the sweep's and one bound.
+    Returns the records by mode."""
+    from lammps_analysis_tpu_torch.ops import adf_kernel, sorting
+    from lammps_analysis_tpu_torch.ops.adf import (
+        neighbor_extract_reference,
+        sorted_neighbor_extract_reference,
+    )
+    from lammps_analysis_tpu_torch.parallel.sharded_ops import AdfPlan
+
+    device = torch.device("cuda")
+    records = {}
+    pos, sid = make_case(ADF["counts"], 16, ADF["box"], 80, device)
+    k_n = AdfPlan(pos.shape[1], ADF["box"], ADF["cutoff"]).k_n
+    args = (pos, sid, ADF["box"], ADF["cutoff"], k_n, 2)
+    plain = neighbor_extract_reference(*args, with_idx=True)
+    plain_ms = time_ms(lambda: neighbor_extract_reference(*args, with_idx=True), 1)
+    for route, wrapper in (("binned", adf_kernel.neighbor_extract_binned),
+                           ("sweep", adf_kernel.neighbor_extract_sweep)):
+        ours = wrapper(*args, with_idx=True)
+        torch.cuda.synchronize()
+        for name, a, b in zip(("rx", "ry", "rz", "d", "sid", "counts", "idx"), ours, plain):
+            if not torch.equal(a, b):
+                raise RuntimeError(f"K2 idx, {route}: {name} differs from the plain version")
+        del ours
+        record = RECORD_OF_ROUTE[route]
+        ms = device_ms(lambda: wrapper(*args, with_idx=True), 20, record)
+        lean_ms = device_ms(lambda: wrapper(*args), 20, record)
+        bound_ms, bound_by = extract_bound(pos, sid, ADF["box"], ADF["cutoff"], 2, k_n, plain[5],
+                                           idx=True)
+        records[f"{record} idx"] = dict(max_diff=0.0, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                                        bound_by=bound_by)
+        phase("2 extract", f"idx, {route}: 16 x {pos.shape[1]} atoms at K={k_n}, all seven outputs equal "
+              f"to the plain version; {ms:.4f} ms on the device with idx, {lean_ms:.4f} ms without; bound "
+              f"{bound_ms:.4f} ms ({bound_by}; {100 * bound_ms / ms:.1f} % of it); plain {plain_ms:.3f} ms")
+    del plain
+
+    pos, sid = droplet(2, 82, device)
+    c = DROPLET
+    args = (pos, sid, None, c["cutoff"], c["k_n"], 2)
+    plain = neighbor_extract_reference(*args, with_idx=True)
+    ours = adf_kernel.neighbor_extract_sweep(*args, with_idx=True)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("rx", "ry", "rz", "d", "sid", "counts", "idx"), ours, plain):
+        if not torch.equal(a, b):
+            raise RuntimeError(f"K2 open boundaries: {name} differs from the plain version")
+    ms = device_ms(lambda: adf_kernel.neighbor_extract_sweep(*args), 20, "adf_neighbor_extract")
+    plain_ms = time_ms(lambda: neighbor_extract_reference(*args), 1)
+    tests = open_needed_tests(pos, c["cutoff"])
+    n = pos.shape[1]
+    bound_ms, bound_by = bound(22 * tests + int(plain[5].sum()), 2 * n * 12 + n * 4 + 2 * n * (c["k_n"] * 20 + 4))
+    records["adf_neighbor_extract open"] = dict(max_diff=0.0, ms=ms, plain_ms=plain_ms,
+                                               bound_ms=bound_ms, bound_by=bound_by)
+    phase("2 extract", f"open boundaries, sweep: a droplet of 2 x {n} atoms (radius {c['radius']} A, no box), "
+          f"K={c['k_n']}, mean count {float(plain[5].float().mean()):.2f}, largest {int(plain[5].max())}; "
+          f"all seven outputs equal to the plain version; {ms:.4f} ms on the device, bound {bound_ms:.4f} ms "
+          f"({bound_by}, {tests / 1e6:.1f} M tests in 27 cells; {100 * bound_ms / ms:.1f} % of it); plain "
+          f"{plain_ms:.3f} ms")
+    del plain, ours
+
+    c = WIDE
+    pos, sid = make_case(c["counts"], 2, c["box"], 83, device)
+    n = pos.shape[1]
+    args = (pos, sid, c["box"], c["cutoff"], c["k_n"], 2)
+    route = adf_kernel.extract_route(c["box"], c["cutoff"], c["k_n"], n)
+    if route != "sorted" or adf_kernel.sort_for(n) != "brick":
+        raise RuntimeError(f"wide lists: extract_route takes {route}, sort {adf_kernel.sort_for(n)}")
+    *swept, counts = adf_kernel.neighbor_extract_sweep(*args)
+    if int(counts.max()) > c["k_n"]:
+        raise RuntimeError(f"wide lists saturate K={c['k_n']}: {int(counts.max())}")
+    reference = by_displacement(swept, counts)
+    del swept
+    sweep_ms = device_ms(lambda: adf_kernel.neighbor_extract_sweep(*args), 3, "adf_neighbor_extract")
+    bound_ms, bound_by = extract_bound(pos, sid, c["box"], c["cutoff"], 2, c["k_n"], counts)
+    line = []
+    for sort in ("z", "brick"):
+        limit = sorting.window_bound(sort, n, c["box"], c["cutoff"])
+        ours = adf_kernel.sorted_neighbor_extract(*args, sort, limit)
+        plain = sorted_neighbor_extract_reference(*args, sort)
+        torch.cuda.synchronize()
+        for name, a, b in zip(("rx", "ry", "rz", "d", "sid", "counts", "sid_sorted"), ours, plain):
+            if not torch.equal(a, b):
+                raise RuntimeError(f"K2 sorted {sort}: {name} differs from the plain version")
+        if int(ours[7]) != 0:
+            raise RuntimeError(f"K2 sorted {sort}: the windows overflowed the bound {limit}")
+        _, _, order, _, total = sorting.sort_frames(pos, sid, 2, c["box"], c["cutoff"], sort)
+        inv = torch.argsort(order, dim=1)
+        back = [torch.gather(t, 1, inv[..., None].expand_as(t)) for t in ours[:5]]
+        counts_back = torch.gather(ours[5], 1, inv)
+        if not torch.equal(counts_back, counts) or not all(
+                torch.equal(a, b) for a, b in zip(by_displacement(back, counts_back), reference)):
+            raise RuntimeError(f"K2 sorted {sort}: the neighbor sets differ from the sweep's")
+        del ours, plain, back
+        ms = device_ms(lambda: adf_kernel.sorted_neighbor_extract(*args, sort, limit), 3,
+                       "adf_neighbor_extract")
+        call_ms = time_ms(lambda: adf_kernel.sorted_neighbor_extract(*args, sort, limit), 3)
+        plain_ms = time_ms(lambda: sorted_neighbor_extract_reference(*args, sort), 1)
+        n_chunks = -(-n // sorting.CHUNK_ATOMS)
+        records[f"adf_neighbor_extract sorted {sort}"] = dict(
+            max_diff=0.0, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
+        line.append(f"{sort}: kernel {ms:.4f} ms on the device ({sweep_ms / ms:.2f} x the sweep), "
+                    f"{call_ms:.4f} ms a call with the sort and the windows, widest window "
+                    f"{int(total.max())} of {n_chunks} chunks (mean {float(total.float().mean()):.1f}, "
+                    f"bound {limit}), plain {plain_ms:.3f} ms")
+    phase("2 extract", f"sorted route at the wide-list shape, 2 x {n} atoms, box {c['box'][0]} A, cutoff "
+          f"{c['cutoff']} A, K={c['k_n']}, mean count {float(counts.float().mean()):.1f}, largest "
+          f"{int(counts.max())}: each sort equal to the plain sorted extract bit for bit, no overflow, "
+          f"every atom's neighbor set equal to the sweep's; sweep {sweep_ms:.4f} ms on the device; "
+          + "; ".join(line) + f"; bound {bound_ms:.4f} ms ({bound_by}); extract_route takes {route}")
+    del reference
+    torch.cuda.empty_cache()
     return records
 
 
@@ -786,7 +983,7 @@ def adf_kernels_vs_plain() -> dict:
         bound_ms, bound_by = extract_bound(pos, sid, c["box"], c["cutoff"], n_species, k_n, counts)
         for t in timed.values():
             t.update(plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
-        chosen = adf_kernel.extract_route(c["box"], c["cutoff"], k_n)
+        chosen = adf_kernel.extract_route(c["box"], c["cutoff"], k_n, pos.shape[1])
         side = ", ".join(
             f"{r} {t['ms']:.4f} ms on the device, {t['call_ms']:.4f} ms a call back to back "
             f"({100 * bound_ms / t['ms']:.1f} % of the bound)"
@@ -882,9 +1079,10 @@ def forced_calls(label: str, fn, n: int = 7) -> float:
 
 def profile_call(label: str, fn) -> dict:
     """Run ``fn`` once under ``torch.profiler``: device time and launches per
-    kernel record, and the share of the call the device was busy. Returns
-    ``records`` (per kernel record), ``names`` (device time by kernel name,
-    microseconds), ``device_ms`` and ``busy`` (the busy share)."""
+    kernel record, the share of the call the device was busy, and the host's
+    kernel launches (runtime API calls). Returns ``records`` (per kernel
+    record), ``names`` (device time by kernel name, microseconds),
+    ``device_ms``, ``busy`` (the busy share) and ``launches``."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
 
@@ -905,6 +1103,8 @@ def profile_call(label: str, fn) -> dict:
             busy += stop - max(start, end)
             end = stop
     wall_us = call.time_range.end - call.time_range.start
+    host_launches = sum(1 for e in events if e.name in ("cudaLaunchKernel", "cudaLaunchKernelExC",
+                                                         "cuLaunchKernel", "cuLaunchKernelEx"))
     per_record = {}
     for record, parts in DEVICE_KERNELS.items():
         spans = [(a, b) for a, b, name in device if any(part in name for part in parts)]
@@ -927,13 +1127,14 @@ def profile_call(label: str, fn) -> dict:
         "4 profile",
         f"{label}: {wall_us / 1e3:.3f} ms under the profiler, device busy "
         f"{busy / 1e3:.3f} ms ({100 * busy / wall_us:.1f} % of the call, idle "
-        f"{100 - 100 * busy / wall_us:.1f} %); "
+        f"{100 - 100 * busy / wall_us:.1f} %), {host_launches} kernel launches from the host; "
         + "; ".join(
             f"{name} {v['device_ms']:.3f} ms in {v['kernels']} device kernels"
             for name, v in per_record.items()
         ),
     )
-    return dict(records=per_record, names=by_name, device_ms=busy / 1e3, busy=busy / wall_us)
+    return dict(records=per_record, names=by_name, device_ms=busy / 1e3, busy=busy / wall_us,
+                launches=host_launches)
 
 
 def ingest(root, counts, n_frames, box, seed, pos=None):
@@ -1010,6 +1211,7 @@ def main_path(card: str) -> tuple[int, dict]:
 
         forced_calls("RDF 64 frames x 10240 atoms, forced", forced)
         profiled = profile_call("RDF 64 frames x 10240 atoms, forced", forced)
+        orchestration_rdf(exp, kw, result, forced)
 
         # the post-processing over the RDF that K1 computed: the ideal gas's
         # coordination number is rho 4/3 pi (r^3 - r0^3)
@@ -1048,6 +1250,80 @@ def main_path(card: str) -> tuple[int, dict]:
     phase("3 post", "small input: CN, POMF, KBI and S(q) of the card's and the CPU's RDF identical")
     post_lattice()
     return launches, profiled
+
+
+def orchestration_rdf(exp, kw, result, forced) -> None:
+    """``[3 orchestration]`` on the ``[3 main]`` RDF: ``plot=True`` (a cache
+    hit) writes ``figures/RadialDistributionFunction.html`` whose panels hold
+    the result's g(r), and the PNG where matplotlib imports; one forced call
+    under ``utils.profiling.device_trace`` with ``annotate`` spans writes a
+    Chrome trace that names K1's kernel and the spans."""
+    import html as html_module
+    import re
+
+    from lammps_analysis_tpu_torch.utils import profiling
+    from lammps_analysis_tpu_torch.visualizer import have_matplotlib
+
+    t0 = time.perf_counter()
+    exp.run.RadialDistributionFunction(**dict(kw, plot=True))
+    plot_s = time.perf_counter() - t0
+    figures = exp.path / "figures"
+    page = (figures / "RadialDistributionFunction.html").read_text()
+    panels = [json.loads(html_module.unescape(b)) for b in re.findall(r"data-series='([^']*)'", page)]
+    for panel, key in zip(panels, ("Na_Na", "Na_Cl", "Cl_Cl")):
+        y = np.asarray(result[key]["y"], float)
+        if not np.array_equal(np.asarray(panel["y"]), y[np.isfinite(y)]):
+            raise RuntimeError(f"orchestration: the HTML panel of {key} does not hold the result's g(r)")
+    png = (figures / "RadialDistributionFunction.png").exists()
+    if len(panels) != 3 or png != have_matplotlib():
+        raise RuntimeError(f"orchestration: {len(panels)} panels, PNG {png}, matplotlib {have_matplotlib()}")
+    phase("3 orchestration", f"plot=True on the [3 main] RDF (a cache hit): RadialDistributionFunction.html "
+          f"({len(page) / 1e3:.0f} kB, 3 panels holding the result's g(r)) in {plot_s * 1e3:.1f} ms; PNG "
+          f"{'written' if png else 'not written: matplotlib does not import here'}")
+    with tempfile.TemporaryDirectory() as trace_dir:
+        t0 = time.perf_counter()
+        with profiling.device_trace(trace_dir):
+            with profiling.annotate("rdf forced call"):
+                forced()
+        trace_s = time.perf_counter() - t0
+        (trace,) = pathlib.Path(trace_dir).glob("trace-*.json")
+        names = {e.get("name", "") for e in json.loads(trace.read_text())["traceEvents"]}
+        size_mb = trace.stat().st_size / 1e6
+    if not any("rdf_histogram_kernel" in name for name in names) or "rdf forced call" not in names:
+        raise RuntimeError("orchestration: the trace holds no rdf_histogram_kernel or no annotate span")
+    phase("3 orchestration", f"device_trace around one forced RDF call with an annotate span: "
+          f"{trace.name} ({size_mb:.1f} MB, {len(names)} event names) names rdf_histogram_kernel and "
+          f"the span; {trace_s:.3f} s with the export")
+
+
+def orchestration_energies(exp) -> None:
+    """``[3 orchestration]``: ``exp.time_series.Energies`` on the ``[3 flux]``
+    experiment (per-atom potential energies of 250 frames x 10240 atoms),
+    the per-frame totals summed on the card in float64, against numpy float64
+    sums of the stored arrays (rtol 1e-12), with its HTML plot."""
+    from lammps_analysis_tpu_torch.utils.config import get_device
+
+    window = 10
+    if get_device().type != "cuda":
+        raise RuntimeError(f"orchestration: config.device is {get_device()}")
+    t0 = time.perf_counter()
+    series = exp.time_series.Energies(window=window)
+    seconds = time.perf_counter() - t0
+    worst = 0.0
+    for sp in ("Na", "Cl"):
+        data = exp.store.load([f"{sp}/Potential_Energy"])[f"{sp}/Potential_Energy"].astype(np.float64)
+        total = data.sum(axis=(1, 2))
+        want = np.convolve(total, np.ones(window) / window, mode="valid")
+        got = series["series"][sp]
+        if got.shape != want.shape:
+            raise RuntimeError(f"orchestration: Energies {sp} has shape {got.shape}, not {want.shape}")
+        worst = max(worst, float(np.max(np.abs(got / want - 1))))
+    if worst > 1e-12 or not (exp.path / "figures" / "timeseries_Potential_Energy.html").exists():
+        raise RuntimeError(f"orchestration: Energies off the float64 sums by {worst} or no HTML plot")
+    phase("3 orchestration", f"exp.time_series.Energies(window={window}) on the [3 flux] experiment "
+          f"({len(series['time'])} points a species, sums on the card in float64): within {worst:.2e} of "
+          f"numpy float64 sums of the stored arrays; timeseries_Potential_Energy.html written; "
+          f"{seconds * 1e3:.1f} ms")
 
 
 def sdf_path(exp, card: str) -> None:
@@ -1285,6 +1561,150 @@ def adf_main_path(card: str) -> tuple[dict, dict]:
     phase("3 adf", "small input (300 + 200 atoms, 6 frames, 3 batches): card and CPU "
           "agree within the angle-histogram tolerance")
     return launches, profiled
+
+
+def adf_wide_path(card: str) -> dict:
+    """``[3 adf-wide]``: the wide-list shapes and open boundaries through the
+    entry points a user calls, on the card, with every count set to 0 just
+    before and read just after:
+
+    * ``exp.run.AngularDistributionFunction`` on 2 frames of ``WIDE`` (32768
+      atoms, cutoff 10 A, 500 bins): the plan's first pass at K = 512 takes
+      the binned route and saturates, the second at K = 1024 the sorted route
+      (brick sort) and the angle kernel per frame; no plain call; every triple
+      finite and integrating to the batch count; held to the same call with
+      the sorted route turned into the sweep (the ADF allowance); forced-call
+      walls of both routes; one forced call under the profiler (device busy
+      and idle share);
+    * ``ops.adf_kernel.adf_histogram`` one-shot on 2 x 10240 atoms at cutoff
+      10 A, K = 1024 (``WIDE_Z``: the sorted route, z sort), held to the
+      sweep's histogram; and on 2 frames of the droplet with ``box=None``
+      (the sweep, open boundaries), held to the plain ADF;
+    * ``ops.adf_kernel.neighbor_indices`` on the ``[3 adf]`` frames (binned,
+      idx) and on the droplet (sweep, open, idx), equal to the plain idx.
+
+    Returns the launches by record."""
+    from lammps_analysis_tpu_torch import config
+    from lammps_analysis_tpu_torch.ops import adf_kernel
+    from lammps_analysis_tpu_torch.ops.adf import adf_histogram_reference, neighbor_extract_reference
+    from lammps_analysis_tpu_torch.parallel.sharded_ops import AdfPlan
+
+    c = WIDE
+    n_bins = c["n_bins"]
+    d_theta = ADF_RANGE / n_bins
+    keys = ("Na_Na_Na", "Na_Na_Cl", "Na_Cl_Cl", "Cl_Cl_Cl")
+    kw = dict(number_of_configurations=2, start=0, cutoff=c["cutoff"], number_of_bins=n_bins, plot=False)
+    config.device = "cuda"
+    route = adf_kernel.extract_route
+
+    def sweep_for_sorted(*args):
+        chosen = route(*args)
+        return "sweep" if chosen == "sorted" else chosen
+
+    with tempfile.TemporaryDirectory() as root:
+        exp = ingest(root, c["counts"], 2, c["box"][0], seed=2040)
+        calculator = exp.run.AngularDistributionFunction
+        zero_counters()
+        t0 = time.perf_counter()
+        result = calculator(**kw)
+        seconds = time.perf_counter() - t0
+        counts = mesh_counters()
+        if counts["adf_neighbor_extract sorted brick"] < 1 or counts["adf_pairs_histogram"] < 1 \
+                or counts["plain"] or counts["adf_neighbor_extract sorted z"]:
+            raise RuntimeError(f"adf-wide: launches {counts}; the brick-sorted route and the angle "
+                               "kernel, no plain call")
+        n_batches = calculator.last_n_batches
+        for key in keys:
+            adf = np.asarray(result[key]["adf"])
+            area = float(adf.sum() * d_theta)
+            if adf.shape != (n_bins,) or not np.all(np.isfinite(adf)) or abs(area - n_batches) > 1e-4 * n_batches:
+                raise RuntimeError(f"adf-wide: {key} has shape {adf.shape}, area {area}")
+        launches = dict(counts)
+        phase("3 adf-wide", f"ADF 2 frames x {sum(c['counts'])} atoms, box {c['box'][0]} A, cutoff "
+              f"{c['cutoff']} A, {n_bins} bins: {seconds:.3f} s wall (first call), {n_batches} batch(es), "
+              f"{calculator.last_n_passes} passes to K={calculator.last_k_n}; launches "
+              f"{ {k: v for k, v in counts.items() if v} }, 0 plain calls; every triple finite and "
+              f"integrating to {n_batches}, on {card}")
+        adf_kernel.extract_route = sweep_for_sorted
+        try:
+            zero_counters()
+            swept = exp.run.AngularDistributionFunction(force=True, **kw)
+            sweep_counts = mesh_counters()
+            sweep_wall = forced_calls("ADF wide, sweep route, forced",
+                                      lambda: exp.run.AngularDistributionFunction(force=True, **kw), n=3)
+            swept_profile = profile_call(
+                "ADF wide 2 frames x 32768 atoms, sweep route, forced",
+                lambda: exp.run.AngularDistributionFunction(force=True, **kw))
+        finally:
+            adf_kernel.extract_route = route
+        if sweep_counts["adf_neighbor_extract sorted brick"] or sweep_counts["adf_neighbor_extract"] < 1:
+            raise RuntimeError(f"adf-wide: the sweep-route call launched {sweep_counts}")
+        for key in keys:
+            check_hist(f"adf-wide {key} sorted vs sweep", result[key]["adf"], swept[key]["adf"])
+        def forced():
+            return exp.run.AngularDistributionFunction(force=True, **kw)
+
+        sorted_wall = forced_calls("ADF wide, sorted route, forced", forced, n=3)
+        profiled = profile_call("ADF wide 2 frames x 32768 atoms, sorted route, forced", forced)
+        phase("3 adf-wide", f"the sorted route's ADF within the ADF allowance of the sweep route's on every "
+              f"triple; forced-call medians: sorted {sorted_wall:.3f} ms, sweep {sweep_wall:.3f} ms; device "
+              f"busy {100 * profiled['busy']:.1f} % of the sorted call (idle {100 - 100 * profiled['busy']:.1f} %), "
+              f"{100 * swept_profile['busy']:.1f} % of the sweep's; kernel launches from the host "
+              f"{profiled['launches']} and {swept_profile['launches']}")
+
+    device = torch.device("cuda")
+    zero_counters()
+    cz = WIDE_Z
+    pos, sid = make_case(cz["counts"], 2, cz["box"], 2041, device)
+    t0 = time.perf_counter()
+    hist, max_count = adf_kernel.adf_histogram(pos, sid, cz["box"], cz["cutoff"], cz["n_bins"], 2,
+                                               k_n=cz["k_n"])
+    torch.cuda.synchronize()
+    z_s = time.perf_counter() - t0
+    counts = mesh_counters()
+    adf_kernel.extract_route = sweep_for_sorted
+    try:
+        swept, _ = adf_kernel.adf_histogram(pos, sid, cz["box"], cz["cutoff"], cz["n_bins"], 2,
+                                            k_n=cz["k_n"])
+    finally:
+        adf_kernel.extract_route = route
+    if counts["adf_neighbor_extract sorted z"] != 1 or int(max_count) > cz["k_n"]:
+        raise RuntimeError(f"adf_histogram wide z: launches {counts}, largest count {int(max_count)}")
+    check_hist("adf_histogram wide, z-sorted vs sweep", hist.cpu().numpy(), swept.cpu().numpy())
+    phase("3 adf-wide", f"adf_histogram one-shot, 2 x {sum(cz['counts'])} atoms, cutoff {cz['cutoff']} A, "
+          f"K={cz['k_n']}: the z-sorted route ({counts['adf_neighbor_extract sorted z']} launch, angle kernel "
+          f"{counts['adf_pairs_histogram']}), largest count {int(max_count)}, {z_s * 1e3:.1f} ms first call; "
+          "within the ADF allowance of the sweep's")
+    for key, n in counts.items():
+        launches[key] += n
+
+    zero_counters()
+    dc = DROPLET
+    pos, sid = droplet(2, 2042, device)
+    hist, max_count = adf_kernel.adf_histogram(pos, sid, None, dc["cutoff"], dc["n_bins"], 2, k_n=dc["k_n"])
+    idx_open = adf_kernel.neighbor_indices(pos, sid, None, dc["cutoff"], dc["k_n"], 2)
+    main, main_sid = make_case(ADF["counts"], 4, ADF["box"], 2043, device)
+    k_n = AdfPlan(main.shape[1], ADF["box"], ADF["cutoff"]).k_n
+    idx_binned = adf_kernel.neighbor_indices(main, main_sid, ADF["box"], ADF["cutoff"], k_n, 2)
+    torch.cuda.synchronize()
+    counts = mesh_counters()
+    plain = adf_histogram_reference(pos, sid, None, dc["cutoff"], dc["n_bins"], 2)
+    check_hist("adf_histogram open boundaries vs plain", hist.cpu().numpy(), plain.cpu().numpy())
+    for label, ours, args in (("open", idx_open, (pos, sid, None, dc["cutoff"], dc["k_n"], 2)),
+                              ("binned", idx_binned, (main, main_sid, ADF["box"], ADF["cutoff"], k_n, 2))):
+        if not torch.equal(ours, neighbor_extract_reference(*args, with_idx=True)[6]):
+            raise RuntimeError(f"neighbor_indices, {label}: differs from the plain idx")
+    expected = {"adf_neighbor_extract open": 2, "adf_neighbor_extract idx": 1, "adf_neighbor_cells idx": 1}
+    if any(counts[k] != v for k, v in expected.items()) or counts["plain"]:
+        raise RuntimeError(f"adf-wide ops: launches {counts}, expected {expected} and no plain call")
+    phase("3 adf-wide", f"adf_histogram(box=None) on 2 frames of the droplet ({sum(dc['counts'])} atoms): "
+          f"the sweep with open boundaries, largest count {int(max_count)}, within the ADF allowance of the "
+          f"plain ADF; neighbor_indices on the droplet (sweep, open) and on 4 x {main.shape[1]} [3 adf] frames "
+          f"(binned) equal to the plain idx; launches { {k: v for k, v in counts.items() if v} }")
+    for key, n in counts.items():
+        if key != "plain":
+            launches[key] += n
+    return launches
 
 
 def transport_dump(root, label="3 transport"):
@@ -1940,6 +2360,7 @@ def flux_main_path(card: str, transport: dict) -> dict:
 
             walls[name] = forced_calls(f"{name} {size}, re-run", rerun)
             traces[name] = profile_call(f"{name} {size}, re-run", rerun)
+        orchestration_energies(exp)
 
     # the same path from a small dump, on the card and on the CPU
     outputs = {}
@@ -2274,7 +2695,7 @@ def water_adf_vs_plain(feeds) -> dict:
     for (runner, positions), k_n in feeds:
         sid, box, cutoff, n_species = runner.species_id, runner.box, runner.cutoff, runner.n_species
         box_t = tuple(float(b) for b in np.asarray(box).reshape(-1))
-        route = adf_kernel.extract_route(box_t, cutoff, k_n)
+        route = adf_kernel.extract_route(box_t, cutoff, k_n, positions.shape[1])
         if route != "binned":
             raise RuntimeError(f"water: the ADF's extract routes to {route}, not binned")
         n_frames, n_atoms, _ = positions.shape
@@ -2516,6 +2937,11 @@ def mesh_counters() -> dict:
         "adf_neighbor_cells": adf_kernel.neighbor_extract_binned.launches,
         "adf_neighbor_extract": adf_kernel.neighbor_extract_sweep.launches,
         "adf_pairs_histogram": adf_kernel.adf_pairs_histogram.launches,
+        "adf_neighbor_extract open": adf_kernel.neighbor_extract_sweep.open_launches,
+        "adf_neighbor_extract idx": adf_kernel.neighbor_extract_sweep.idx_launches,
+        "adf_neighbor_cells idx": adf_kernel.neighbor_extract_binned.idx_launches,
+        "adf_neighbor_extract sorted z": adf_kernel.sorted_neighbor_extract.launches["z"],
+        "adf_neighbor_extract sorted brick": adf_kernel.sorted_neighbor_extract.launches["brick"],
         "plain": rdf_histogram_reference.calls + neighbor_extract_reference.calls
         + adf_pairs_histogram_reference.calls,
     }
@@ -2530,6 +2956,10 @@ def zero_counters() -> None:
     for fn in (adf_kernel.neighbor_extract_binned, adf_kernel.neighbor_extract_sweep,
                adf_kernel.adf_pairs_histogram):
         fn.launches = 0
+    adf_kernel.neighbor_extract_sweep.open_launches = 0
+    adf_kernel.neighbor_extract_sweep.idx_launches = 0
+    adf_kernel.neighbor_extract_binned.idx_launches = 0
+    adf_kernel.sorted_neighbor_extract.launches = {"z": 0, "brick": 0}
     for fn in (rdf_histogram_reference, neighbor_extract_reference, adf_pairs_histogram_reference):
         fn.calls = 0
 
@@ -2911,8 +3341,12 @@ def main() -> int:
     rows = kernel_rows()
     adf = adf_kernels_vs_plain()
     stripes = extract_stripes()
+    modes = extract_modes()
     rdf_launches, _ = main_path(card)
     adf_launches, _ = adf_main_path(card)
+    wide = adf_wide_path(card)
+    for name in adf_launches:
+        adf_launches[name] += wide[name]
     transport = transport_main_path(card)
     flux_main_path(card, transport)
     flux_file_path(card)
@@ -2927,12 +3361,15 @@ def main() -> int:
     rdf_launches += mesh["rdf_histogram"]
     for name in adf_launches:
         adf_launches[name] += mesh[name]
+    from lammps_analysis_tpu_torch import Report
+
+    phase("3 orchestration", "Report: " + "; ".join(f"{k} {v}" for k, v in sorted(Report().info.items())))
 
     def cases(prefix):
         return [v for k, v in adf.items() if k.startswith(prefix)]
 
     one_frame = "a1 main-path launch 1x10240"
-    print(json.dumps({"kernels": [
+    records = [
         kernel_record("rdf_histogram", rdf_launches, list(rdf.values()),
                       rdf["m main path 64x10240"]),
         kernel_record("adf_neighbor_cells", adf_launches["adf_neighbor_cells"],
@@ -2946,7 +3383,15 @@ def main() -> int:
                       stripes["binned"], "stripe"),
         kernel_record("adf_neighbor_extract", mesh["adf_neighbor_extract stripe"], [stripes["sweep"]],
                       stripes["sweep"], "stripe"),
-    ]}), flush=True)
+        *(kernel_record(record.split()[0], wide[record], [modes[record]], modes[record],
+                        record.split(" ", 1)[1])
+          for record in ("adf_neighbor_extract idx", "adf_neighbor_cells idx", "adf_neighbor_extract open",
+                         "adf_neighbor_extract sorted z", "adf_neighbor_extract sorted brick")),
+    ]
+    idle = [r["name"] for r in records if r["launches"] < 1]
+    if idle:
+        raise RuntimeError(f"no launch on the main paths of {idle}")
+    print(json.dumps({"kernels": records}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

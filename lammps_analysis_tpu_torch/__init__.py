@@ -12,7 +12,10 @@ on the neighbor extract and the angle histogram
 each with a plain torch version beside it. The coordinate transformations
 and ``exp.run.EinsteinDiffusionCoefficients(...)`` /
 ``exp.run.GreenKuboDiffusionCoefficients(...)`` run as torch ops (the JAX
-package runs them on XLA ops, no Pallas kernel).
+package runs them on XLA ops, no Pallas kernel). So do the other calculators,
+``exp.time_series.*``, the plots of ``plot=True`` and ``exp.run_visualization``
+(self-contained HTML, and PNG where matplotlib imports), ``Report`` and the
+profiling hooks (``utils/profiling.py``).
 
 Device-side work runs on ``torch.device(config.device)``, ``"cuda"`` by
 default; set ``config.device = "cpu"`` for the plain torch path.
@@ -29,6 +32,7 @@ from .utils.molecule import Molecule
 _LAZY = {
     "Project": ("lammps_analysis_tpu_torch.project.project", "Project"),
     "Experiment": ("lammps_analysis_tpu_torch.experiment.experiment", "Experiment"),
+    "Report": ("lammps_analysis_tpu_torch.utils.report", "Report"),
 }
 
 
@@ -42,7 +46,7 @@ def __getattr__(name):
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 
-__all__ = ["Project", "Experiment", "Molecule", "units", "config"]
+__all__ = ["Project", "Experiment", "Molecule", "Report", "units", "config"]
 
 __version__ = "0.1.0"
 

@@ -19,12 +19,18 @@ distinct diffusion pair streams two species' slabs together
 (``_stream_properties_multi``). With ``config.fuse_streaming`` an
 ``Unwrapped_Positions`` stream whose dataset is not materialised is unwrapped
 on the fly from the wrapped positions (``_stream_unwrapped_fused``).
-Plotting is not ported yet.
+
+``plot=True`` (the default, as in the JAX package) writes each computation's
+plots under the experiment's ``figures/``: a self-contained HTML
+(``visualizer/html_plots.py``) first, then a PNG where matplotlib imports.
+The JAX package writes the PNG first, so on a machine without matplotlib it
+writes neither. A failing plot is logged and never fails the analysis.
 
 In a process group every rank runs the calculator (the sharded ops split the
 work over the default mesh); rank 0 alone decides the cache lookup, runs the
 dependency check's transformations and stores the result, and every rank
-returns the same Computation (``parallel/multihost.py::rank_zero``).
+returns the same Computation (``parallel/multihost.py::rank_zero``); rank 0
+alone writes the plots.
 """
 
 from __future__ import annotations
@@ -48,6 +54,8 @@ from ..transformations.registry import transformation_for_property
 from ..utils.config import config, get_device
 from ..utils.constants import DatasetKeys
 from ..utils.progress import progress_iter
+from ..visualizer.html_plots import write_html_plot
+from ..visualizer.plots import have_matplotlib, plot_series_results
 
 log = logging.getLogger(__name__)
 
@@ -100,8 +108,6 @@ class Calculator(abc.ABC):
 
     #: per-subject series outputs (e.g. x, y)
     result_series_keys: List[str] = []
-    #: set once plotting has been reported as not ported
-    _plot_notice_logged = False
 
     def __init__(self, experiment=None, experiments=None, plot: bool = True):
         self.experiment = experiment
@@ -141,9 +147,8 @@ class Calculator(abc.ABC):
                 )
             else:
                 log.info("%s: cache hit on %s", self.name, exp.name)
-            if plot and not Calculator._plot_notice_logged:
-                Calculator._plot_notice_logged = True
-                log.info("plotting is not ported yet; pass plot=False")
+            if plot:
+                rank_zero(self._plot_quietly)(comp)
             results[exp.name] = comp
         if self._return_dict or len(results) > 1:
             return results
@@ -158,6 +163,25 @@ class Calculator(abc.ABC):
     @abc.abstractmethod
     def run_calculator(self) -> Dict[str, dict]:
         """Run the analysis; return ``{subject_key: result_dict}``."""
+
+    def _plot_quietly(self, computation: Computation) -> None:
+        try:
+            self.plot_results(computation)
+        except Exception as err:  # plotting must never kill an analysis
+            log.warning("%s: plotting failed: %s", self.name, err)
+
+    def plot_results(self, computation: Computation) -> None:
+        """Default plots of ``result_series_keys`` (x, then y) per subject:
+        ``figures/<name>.html``, then ``figures/<name>.png`` where
+        matplotlib imports (the reference writes bokeh HTML per analysis,
+        ``visualizer/d2_data_visualization.py:36-140``)."""
+        figures = self.experiment.path / "figures"
+        write_html_plot(computation, self.result_series_keys, out_dir=figures, title=self.name)
+        if have_matplotlib():
+            plot_series_results(computation, self.result_series_keys, out_dir=figures,
+                                title=self.name)
+        else:
+            log.info("%s: matplotlib does not import; %s.png not written", self.name, self.name)
 
 
 class TrajectoryCalculator(Calculator):

@@ -475,3 +475,6 @@ class NernstEinsteinIonicConductivity(Calculator):
                 sigma + sigma_d
             )
         return {"System": result}
+
+    def plot_results(self, computation):  # scalar result - nothing to plot
+        pass

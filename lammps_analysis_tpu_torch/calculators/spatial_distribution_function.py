@@ -14,7 +14,8 @@ image dividing by the box, the spherical angles, the shell and self-pair
 mask, integer counts (``ops/histogram.py``) summed in int64 and returned as
 float64. The tiles are sized from the port's own peak memory a pair (eager
 torch keeps every intermediate of the tile, where the JAX package sizes one
-fused XLA program). Plotting is not ported.
+fused XLA program). ``plot=True`` writes the SDF on the unit sphere as a
+self-contained 3-D HTML, and as a matplotlib scatter where matplotlib imports.
 """
 
 from __future__ import annotations
@@ -35,6 +36,8 @@ from ..ops.geometry import (
 )
 from ..ops.histogram import bin_indices, histogram2d_masked
 from ..utils.config import get_device
+from ..visualizer.html3d import write_html_3d
+from ..visualizer.plots import have_matplotlib
 from .base import TrajectoryCalculator
 
 log = logging.getLogger(__name__)
@@ -163,3 +166,38 @@ class SpatialDistributionFunction(TrajectoryCalculator):
         tt, pp = np.meshgrid(theta, phi)
         rtp = np.stack([np.ones_like(tt), tt, pp], axis=-1)
         return spherical_to_cartesian(torch.from_numpy(rtp)).numpy()
+
+    def plot_results(self, computation):
+        """The unit-sphere cloud colored by SDF intensity: a drag and zoom
+        HTML (``figures/SpatialDistributionFunction3D.html``, the open3d
+        viewer's counterpart, ``d3_data_visualizer.py:39-208``), then a 3-D
+        scatter PNG where matplotlib imports (JAX ``spatial_distribution_function.py:199-230``,
+        which writes the PNG first)."""
+        data = computation["System"]
+        sphere = np.asarray(data["sphere"], dtype=float).reshape(-1, 3)
+        colors = np.asarray(data["sdf"], dtype=float).T.reshape(-1)
+        figures = self.experiment.path / "figures"
+        write_html_3d(
+            [[("SDF", sphere)]],
+            figures / "SpatialDistributionFunction3D.html",
+            title="Spatial distribution function",
+            values=[colors],
+            radius=3.0,
+        )
+        if not have_matplotlib():
+            log.info("matplotlib does not import: SpatialDistributionFunction.png not written")
+            return
+        import matplotlib
+
+        matplotlib.use("Agg")
+        import matplotlib.pyplot as plt
+
+        fig = plt.figure(figsize=(6, 6))
+        ax = fig.add_subplot(projection="3d")
+        sc = ax.scatter(sphere[:, 0], sphere[:, 1], sphere[:, 2], c=colors, s=4, cmap="viridis")
+        fig.colorbar(sc, shrink=0.7)
+        ax.set_title("Spatial distribution function")
+        out = figures / "SpatialDistributionFunction.png"
+        out.parent.mkdir(exist_ok=True)
+        fig.savefig(out, dpi=110)
+        plt.close(fig)

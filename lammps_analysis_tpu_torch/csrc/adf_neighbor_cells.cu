@@ -10,7 +10,9 @@
 // id in [0, S) and minimum-image distance d < cutoff, in ascending j, in K slots
 // of structure-of-arrays outputs (F, N, K): rx, ry, rz, d (float32, r = pos_j -
 // pos_i), sid (int32), empty slots 0 and sid -1; counts (F, N) int32 the TRUE
-// count. A center with more than K neighbors gets its exact count and K of
+// count; and, when the caller asks for it (the TPU kernel's lean=False, reached
+// through neighbor_indices_pallas :1395), idx (F, N, K) int32, the neighbors'
+// atom indices in the same slots, -1 in empty ones. A center with more than K neighbors gets its exact count and K of
 // its neighbors, in an unspecified choice (the caller retries with a wider K).
 // The arithmetic is the sweep's (csrc/pair_math.cuh), on the stored,
 // unwrapped coordinates, so every value equals the plain version's bit for
@@ -157,13 +159,17 @@ __global__ void scatter_atoms(const float* __restrict__ pos, const int* __restri
 __device__ __forceinline__ int wrap(int c, int n) { return c < 0 ? c + n : (c >= n ? c - n : c); }
 
 // 4. the lists: one block per cell; its warps take windows of the cell's run in
-// turn, and the window's stripe centers in groups of kGroup
+// turn, and the window's stripe centers in groups of kGroup. kIdx writes idx_out
+// too: a template parameter, since a run-time test of the pointer in the write
+// loops slowed the lean launches of several frames by ~17 % on an H100 (16 x
+// 10240 atoms, first shell: 0.349 against 0.295 ms in chip_smoke.py's [2 extract])
+template <bool kIdx>
 __global__ void __launch_bounds__(kThreads)
 cells_extract(const float* __restrict__ pos, const int* __restrict__ sid,
               const float4* __restrict__ sorted, const int* __restrict__ start,
               float* __restrict__ rx, float* __restrict__ ry, float* __restrict__ rz,
               float* __restrict__ dd, int* __restrict__ sid_out, int* __restrict__ counts,
-              const Params p) {
+              int* __restrict__ idx_out, const Params p) {
   extern __shared__ int smem[];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
@@ -194,6 +200,7 @@ cells_extract(const float* __restrict__ pos, const int* __restrict__ sid,
           rz[row + s] = 0.f;
           dd[row + s] = 0.f;
           sid_out[row + s] = -1;
+          if constexpr (kIdx) idx_out[row + s] = -1;
         }
         if (lane == 0) counts[frame_row + i] = 0;
       }
@@ -302,6 +309,7 @@ cells_extract(const float* __restrict__ pos, const int* __restrict__ sid,
           rz[row + rank] = oz;
           dd[row + rank] = __fsqrt_rn(squared_norm(ox, oy, oz));
           sid_out[row + rank] = sj;
+          if constexpr (kIdx) idx_out[row + rank] = j;
         }
         for (int e = m + lane; e < k; e += 32) {
           rx[row + e] = 0.f;
@@ -309,6 +317,7 @@ cells_extract(const float* __restrict__ pos, const int* __restrict__ sid,
           rz[row + e] = 0.f;
           dd[row + e] = 0.f;
           sid_out[row + e] = -1;
+          if constexpr (kIdx) idx_out[row + e] = -1;
         }
         if (lane == 0) counts[frame_row + i] = found[c];
       }
@@ -333,15 +342,16 @@ int64_t adf_neighbor_cells_scratch_ints(int64_t n_atoms, int64_t n_cells) {
 
 // Writes the neighbor lists of the centers c0 .. c0 + n_rows - 1 of positions
 // (n_frames, n_atoms, 3) float32 with species ids (n_atoms,) int32 into rx, ry,
-// rz, d, sid_out (n_frames, n_rows, k_n) and counts (n_frames, n_rows) (c0 = 0,
-// n_rows = n_atoms: every center), over nx x ny x nz cells of the box (three or
+// rz, d, sid_out (n_frames, n_rows, k_n) and counts (n_frames, n_rows), and
+// into idx (n_frames, n_rows, k_n) int32 unless it is null (c0 = 0, n_rows =
+// n_atoms: every center), over nx x ny x nz cells of the box (three or
 // more each); t is the squared-distance threshold of the cutoff.
 // Scratch: `ints` of n_frames * adf_neighbor_cells_scratch_ints(...) int32 and
 // `sorted` of n_frames * n_atoms float4. Runs on `stream`, allocates nothing,
 // does not synchronise; returns cudaGetLastError().
 int adf_neighbor_cells_launch(const void* positions, const void* species_id,
                               void* rx, void* ry, void* rz, void* d, void* sid_out,
-                              void* counts, void* ints, void* sorted,
+                              void* counts, void* idx, void* ints, void* sorted,
                               int64_t n_frames, int64_t n_atoms, int64_t n_species,
                               int64_t k_n, int64_t c0, int64_t n_rows, int64_t nx,
                               int64_t ny, int64_t nz, float bx, float by, float bz,
@@ -359,8 +369,8 @@ int adf_neighbor_cells_launch(const void* positions, const void* species_id,
                  static_cast<int>(c0), static_cast<int>(n_rows), stripe ? 32 : kGroup};
   const auto s = static_cast<cudaStream_t>(stream);
   const size_t smem = extract_smem(k_n);
-  cudaError_t err = cudaFuncSetAttribute(cells_extract,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+  const auto extract = idx == nullptr ? cells_extract<false> : cells_extract<true>;
+  cudaError_t err = cudaFuncSetAttribute(extract, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   const int64_t per_frame = adf_neighbor_cells_scratch_ints(n_atoms, n_cells);
@@ -384,12 +394,13 @@ int adf_neighbor_cells_launch(const void* positions, const void* species_id,
     bin_atoms<<<atom_grid, kBinThreads, 0, s>>>(pos, sid, cell_of, rank, count, p);
     scan_counts<<<static_cast<unsigned int>(nf), kScanThreads, 0, s>>>(count, start, p);
     scatter_atoms<<<atom_grid, kBinThreads, 0, s>>>(pos, cell_of, rank, start, srt, p);
-    cells_extract<<<dim3(cell_blocks, static_cast<unsigned int>(nf)), kThreads, smem, s>>>(
+    extract<<<dim3(cell_blocks, static_cast<unsigned int>(nf)), kThreads, smem, s>>>(
         pos, sid, srt, start,
         static_cast<float*>(rx) + f0 * list, static_cast<float*>(ry) + f0 * list,
         static_cast<float*>(rz) + f0 * list, static_cast<float*>(d) + f0 * list,
         static_cast<int*>(sid_out) + f0 * list,
-        static_cast<int*>(counts) + f0 * n_rows, p);
+        static_cast<int*>(counts) + f0 * n_rows,
+        idx == nullptr ? nullptr : static_cast<int*>(idx) + f0 * list, p);
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
   }

@@ -537,6 +537,56 @@ class Experiment:
 
         return RunComputation(experiment=self)
 
+    @property
+    def time_series(self):
+        """Time-series dispatch: ``exp.time_series.Energies(...)``.
+
+        Analog of the reference RunModule (``experiment/run_module.py:35``).
+        """
+        from ..time_series import time_series_dict
+
+        experiment = self
+
+        class _TimeSeriesHub:
+            def __getattr__(self, name):
+                try:
+                    cls = time_series_dict[name]
+                except KeyError as err:
+                    raise AttributeError(
+                        f"No time series named {name!r}; available: "
+                        f"{sorted(time_series_dict)}"
+                    ) from err
+                return cls(experiment)
+
+            def __dir__(self):
+                return sorted(time_series_dict)
+
+        return _TimeSeriesHub()
+
+    @rank_zero
+    def run_visualization(
+        self,
+        species: Optional[List[str]] = None,
+        molecules: bool = False,
+        unwrapped: bool = False,
+    ):
+        """Particle-trajectory visualization: ``figures/trajectory.html``, and
+        ``figures/trajectory.png`` where matplotlib imports (on rank 0 alone
+        in a process group). Returns the HTML's path (the JAX package
+        returns the PNG's).
+
+        Signature parity with the reference (``experiment.py:336-380``,
+        znvis backend there): ``unwrapped=True`` renders
+        ``Unwrapped_Positions`` instead of the wrapped coordinates.
+        """
+        from ..visualizer.trajectory_visualizer import TrajectoryVisualizer
+
+        viz = TrajectoryVisualizer(
+            self, species=species, molecules=molecules,
+            property_name="Unwrapped_Positions" if unwrapped else "Positions",
+        )
+        return viz.run()
+
     @rank_zero
     def cls_transformation_run(self, transformation, species=None):
         """Run a transformation instance on this experiment (on rank 0 alone

@@ -6,7 +6,12 @@ stages in ``lammps_analysis_tpu/ops/pallas_adf.py``:
 * ``neighbor_extract_reference`` is the plain version of the CUDA neighbor
   extract (K2, both routes: the sweep ``csrc/adf_neighbor_extract.cu`` and
   the cell lists ``csrc/adf_neighbor_cells.cu``): for every center, every
-  other atom inside the cutoff, in ascending atom order, in K slots;
+  other atom inside the cutoff, in ascending atom order, in K slots, under
+  the minimum image or with open boundaries, optionally with the neighbors'
+  atom indices;
+* ``sorted_neighbor_extract_reference`` is the plain version of the sweep's
+  window mode: each frame sorted in space (``ops/sorting.py``), then the
+  lists of the sorted frame;
 * ``adf_pairs_histogram_reference`` is the plain version of the CUDA angle
   histogram (``csrc/adf_pairs_histogram.cu``, K3): for every center and
   every unordered pair of its listed neighbors, the angle binned per
@@ -33,6 +38,7 @@ import itertools
 import numpy as np
 import torch
 
+from . import sorting
 from .geometry import box_scalars, minimum_image
 
 ADF_BIN_RANGE = (0.0, 3.15)  # radians, the reference's "0 to a chemists pi"
@@ -108,17 +114,22 @@ def neighbor_extract_reference(
     k_n: int,
     n_species: int,
     centers=None,
+    with_idx: bool = False,
 ):
     """Plain per-center neighbor lists, the plain version of K2.
 
-    ``positions`` ``(F, N, 3)`` float32, ``species_id`` ``(N,)`` int; an id
-    outside ``[0, n_species)`` is padding. For every center i with a valid
-    species, every j != i with a valid species and minimum-image distance
-    ``d < cutoff`` goes to the next of the center's ``k_n`` slots, in
-    ascending j. Returns ``(rx, ry, rz, d, sid, counts)``: the first four
-    ``(F, N, k_n)`` float32 with ``r = pos_j - pos_i``, ``sid`` ``(F, N,
+    ``positions`` ``(F, N, 3)`` float32, ``species_id`` ``(N,)`` int, or
+    ``(F, N)`` for frames whose atoms were reordered per frame; an id outside
+    ``[0, n_species)`` is padding. For every center i with a valid species,
+    every j != i with a valid species and distance ``d < cutoff`` goes to the
+    next of the center's ``k_n`` slots, in ascending j. The distance is the
+    minimum image's in ``box`` (3 edge lengths), or plain with ``box=None``
+    (open boundaries). Returns ``(rx, ry, rz, d, sid, counts)``: the first
+    four ``(F, N, k_n)`` float32 with ``r = pos_j - pos_i``, ``sid`` ``(F, N,
     k_n)`` int32, empty slots 0 and sid -1; ``counts`` ``(F, N)`` int32 the
-    true number in the cutoff, which may exceed ``k_n``.
+    true number in the cutoff, which may exceed ``k_n``. ``with_idx`` appends
+    ``idx`` ``(F, N, k_n)`` int32, the neighbors' atom indices, -1 in empty
+    slots.
 
     ``centers=(c0, c1)`` (the center stripe of one rank of
     ``sharded_adf_histogram_2d``) lists only the centers ``c0 <= i < c1``,
@@ -126,29 +137,37 @@ def neighbor_extract_reference(
     c0`` is row ``i`` of the full extract.
     """
     neighbor_extract_reference.calls += 1
-    (bx, by, bz), (ibx, iby, ibz) = box_scalars(box, "the neighbor extract")
+    if box is None:
+        wrap = None
+    else:
+        (bx, by, bz), (ibx, iby, ibz) = box_scalars(box, "the neighbor extract")
+        wrap = ((bx, ibx), (by, iby), (bz, ibz))
     cut = float(np.float32(cutoff))
     f, n, _ = positions.shape
     c0, c1 = (0, n) if centers is None else centers
     device = positions.device
     out = [torch.zeros((f, c1 - c0, k_n), dtype=torch.float32, device=device) for _ in range(4)]
     sid_out = torch.full((f, c1 - c0, k_n), -1, dtype=torch.int32, device=device)
+    idx_out = torch.full((f, c1 - c0, k_n), -1, dtype=torch.int32, device=device) if with_idx else None
     counts = torch.zeros((f, c1 - c0), dtype=torch.int32, device=device)
     sid = _valid_species(species_id, n_species)
+    sid = sid.expand(f, n) if sid.dim() == 1 else sid  # (F, N)
     valid = sid >= 0
-    x, y, z = positions.unbind(-1)  # (F, N) each
+    coords = positions.unbind(-1)  # (F, N) each
     atom = torch.arange(n, device=device)
     block = max(1, min(n, _BLOCK_ELEMENTS // max(f * n, 1)))
     for i0 in range(c0, c1, block):
         i1 = min(i0 + block, c1)
-        dx = minimum_image(x[:, None, :] - x[:, i0:i1, None], bx, ibx)  # (F, B, N)
-        dy = minimum_image(y[:, None, :] - y[:, i0:i1, None], by, iby)
-        dz = minimum_image(z[:, None, :] - z[:, i0:i1, None], bz, ibz)
+        comps = []
+        for axis, x in enumerate(coords):
+            dx = x[:, None, :] - x[:, i0:i1, None]  # (F, B, N)
+            comps.append(dx if wrap is None else minimum_image(dx, *wrap[axis]))
+        dx, dy, dz = comps
         d = torch.sqrt(dx * dx + dy * dy + dz * dz)
         mask = (
             (d < cut)
-            & valid[None, None, :]
-            & valid[None, i0:i1, None]
+            & valid[:, None, :]
+            & valid[:, i0:i1, None]
             & (atom[None, None, :] != atom[i0:i1, None])
         )
         slot = torch.cumsum(mask, dim=2, dtype=torch.int32) - 1
@@ -158,12 +177,42 @@ def neighbor_extract_reference(
         rows = (fi, ci + i0 - c0, si)
         for dst, src in zip(out, (dx, dy, dz, d)):
             dst[rows] = src[fi, ci, ji]
-        sid_out[rows] = sid[ji].to(torch.int32)
+        sid_out[rows] = sid[fi, ji].to(torch.int32)
+        if with_idx:
+            idx_out[rows] = ji.to(torch.int32)
     rx, ry, rz, d_out = out
+    if with_idx:
+        return rx, ry, rz, d_out, sid_out, counts, idx_out
     return rx, ry, rz, d_out, sid_out, counts
 
 
 neighbor_extract_reference.calls = 0
+
+
+def sorted_neighbor_extract_reference(
+    positions: torch.Tensor,
+    species_id: torch.Tensor,
+    box,
+    cutoff: float,
+    k_n: int,
+    n_species: int,
+    sort: str = "z",
+):
+    """Plain version of the sorted route: each frame sorted in space by
+    ``sort`` (``"z"`` or ``"brick"``, ``ops/sorting.py``), then
+    :func:`neighbor_extract_reference` on the sorted frames with their
+    per-frame ids. Returns ``(rx, ry, rz, d, sid, counts, sid_sorted)``:
+    the lists in sorted center order, slots in ascending sorted j, and the
+    sorted ids ``(F, N)`` int32. The sets per center are the unsorted
+    extract's, with the centers permuted by the sort's ``order``."""
+    if sort == "z":
+        pos_s, sid_s, _ = sorting.spatial_sort(positions, species_id, n_species)
+    elif sort == "brick":
+        pos_s, sid_s, _ = sorting.brick_sort(positions, species_id, n_species, box, cutoff)
+    else:
+        raise ValueError(f"sort must be 'z' or 'brick', got {sort!r}")
+    lists = neighbor_extract_reference(pos_s, sid_s, box, cutoff, k_n, n_species)
+    return (*lists, sid_s.to(torch.int32))
 
 
 def adf_pairs_histogram_reference(

@@ -1,19 +1,34 @@
 """Wrappers of the three CUDA ADF kernels, and the neighbor extract's route.
 
 The neighbor extract (counterpart of
-``lammps_analysis_tpu/ops/pallas_adf.py::_neighbor_extract_pallas``) has two
-routes with one contract, ``ops/adf.py::neighbor_extract_reference``'s:
+``lammps_analysis_tpu/ops/pallas_adf.py::_neighbor_extract_pallas``) has three
+routes:
 
 * ``neighbor_extract_binned`` wraps ``csrc/adf_neighbor_cells.cu``: cell
   lists, 27 neighbor cells per center;
 * ``neighbor_extract_sweep`` wraps ``csrc/adf_neighbor_extract.cu``: every
-  center against every atom.
+  center against every atom, under the minimum image or, with ``box=None``,
+  open boundaries;
+* ``sorted_neighbor_extract`` runs the same kernel in its window mode on
+  frames sorted in space (``ops/sorting.py``; counterpart of
+  ``sorted_neighbor_extract``, ``pallas_adf.py:1214``): each block of
+  centers tests only its window's atoms. Its lists come in sorted center
+  order, with the sorted frames' ids beside them.
 
-``neighbor_extract`` takes the route that ``extract_route`` names, a pure
-function of the shapes. Both routes take ``centers=(c0, c1)``: the lists of
-one stripe of centers, by atom index, against every atom (the stage 1 of
-``parallel/sharded_ops.py::sharded_adf_histogram_2d``; the TPU kernel's
-``centers=`` mode, ``pallas_adf.py:232``). ``adf_pairs_histogram`` wraps
+The first two share one contract, ``ops/adf.py::neighbor_extract_reference``'s,
+and may add the neighbors' atom indices (``with_idx``; the TPU kernel's
+``lean=False``). ``neighbor_extract`` takes the binned route or the sweep, as
+``extract_route`` names them, a pure function of the shapes; where it names
+the sorted route, whose rows are not in atom order, ``neighbor_extract``
+sweeps, and the callers that take any center order (``adf_histogram``,
+``parallel/sharded_ops.py``) sort. Both routes take ``centers=(c0, c1)``: the
+lists of one stripe of centers, by atom index, against every atom (the stage 1
+of ``parallel/sharded_ops.py::sharded_adf_histogram_2d``; the TPU kernel's
+``centers=`` mode, ``pallas_adf.py:232``). The counterparts of the JAX
+package's entry points are ``neighbor_indices`` (``neighbor_indices_pallas``
+:1395), ``neighbor_lists`` and ``neighbor_components``
+(``pallas_neighbor_lists`` :1422, ``pallas_neighbor_components`` :1449) and
+``adf_histogram`` (``adf_histogram_pallas`` :2173). ``adf_pairs_histogram`` wraps
 ``csrc/adf_pairs_histogram.cu`` (counterpart of ``adf_pairs_histogram_pallas``
 with ``fold=True``); ``pairs_split`` (pure) cuts each center's pairs into
 chunks and sizes the grid, and ``pairs_histogram_route`` reports what a
@@ -22,9 +37,11 @@ on CUDA tensors or runs the plain torch version (``ops/adf.py``) on CPU
 tensors; a CUDA tensor never falls back. The kernel library builds from the
 checkout's sources at first use (``_build.py``).
 
-``neighbor_extract_binned.launches``, ``neighbor_extract_sweep.launches`` and
+``neighbor_extract_binned.launches``, ``neighbor_extract_sweep.launches``,
+``sorted_neighbor_extract.launches`` (a dict by sort) and
 ``adf_pairs_histogram.launches`` count the kernel launches made through each
-wrapper.
+wrapper; ``neighbor_extract_sweep.open_launches`` and ``.idx_launches`` and
+``neighbor_extract_binned.idx_launches`` count those of them in a mode.
 """
 
 from __future__ import annotations
@@ -38,11 +55,13 @@ import numpy as np
 import torch
 
 from .. import _build
+from . import sorting
 from .adf import (
     adf_pairs_histogram_reference,
     bin_scale,
     n_triples_for,
     neighbor_extract_reference,
+    sorted_neighbor_extract_reference,
 )
 from .cells import cell_lists_applicable, cells_per_axis
 from .geometry import box_scalars, squared_cutoff
@@ -50,20 +69,34 @@ from .geometry import box_scalars, squared_cutoff
 #: widest neighbor list the binned route stages (``kMaxK`` in
 #: ``csrc/adf_neighbor_cells.cu``: 4 warps x 16 centers x K ints of shared memory)
 BINNED_MAX_K = 512
+#: atoms from which the sorted route sorts by (z-slab, y) and below which by z
+#: (the JAX package's measured switch, ``parallel/sharded_ops.py:327-334``)
+BRICK_MIN_ATOMS = 16384
 
 
 @functools.cache
 def _library() -> ctypes.CDLL:
     lib = _build.load_library()
     lib.adf_neighbor_extract_launch.argtypes = (
-        [ctypes.c_void_p] * 8
-        + [ctypes.c_int64] * 6
+        [ctypes.c_void_p] * 9
+        + [ctypes.c_int64] * 8
+        + [ctypes.c_void_p]
+        + [ctypes.c_int64] * 2
+        + [ctypes.c_void_p]
         + [ctypes.c_float] * 7
         + [ctypes.c_void_p]
     )
     lib.adf_neighbor_extract_launch.restype = ctypes.c_int
+    for fn in (lib.adf_neighbor_extract_block_centers, lib.adf_neighbor_extract_chunk_atoms):
+        fn.argtypes, fn.restype = [], ctypes.c_int
+    shape = (lib.adf_neighbor_extract_block_centers(), lib.adf_neighbor_extract_chunk_atoms())
+    if shape != (sorting.BLOCK_CENTERS, sorting.CHUNK_ATOMS):
+        raise RuntimeError(
+            f"the sweep kernel's (block, chunk) {shape} differ from ops/sorting.py's "
+            f"{(sorting.BLOCK_CENTERS, sorting.CHUNK_ATOMS)}"
+        )
     lib.adf_neighbor_cells_launch.argtypes = (
-        [ctypes.c_void_p] * 10
+        [ctypes.c_void_p] * 11
         + [ctypes.c_int64] * 9
         + [ctypes.c_float] * 7
         + [ctypes.c_void_p]
@@ -112,14 +145,28 @@ def _raise_on(err: int, lib, what: str) -> None:
         )
 
 
-def extract_route(box, cutoff: float, k_n: int) -> str:
-    """``"binned"`` or ``"sweep"``: the neighbor extract's route for this shape.
+def sort_for(n_atoms: int) -> str:
+    """The sorted route's sort for ``n_atoms``: ``"brick"`` from
+    ``BRICK_MIN_ATOMS`` on, ``"z"`` below."""
+    return "brick" if n_atoms >= BRICK_MIN_ATOMS else "z"
 
-    Binned when the box holds three or more cells on every axis
-    (``ops/cells.py``) and K is at most ``BINNED_MAX_K``; the sweep otherwise.
+
+def extract_route(box, cutoff: float, k_n: int, n_atoms: int) -> str:
+    """``"binned"``, ``"sorted"`` or ``"sweep"``: the neighbor extract's route
+    for this shape.
+
+    The sweep for open boundaries (``box=None``). Binned when the box holds
+    three or more cells on every axis (``ops/cells.py``) and K is at most
+    ``BINNED_MAX_K``. Else sorted when the z window's bound
+    (``ops/sorting.py::window_chunk_bound``, from ``2.1 cutoff / L_z``) is
+    narrower than the whole frame; the sweep otherwise.
     """
+    if box is None:
+        return "sweep"
     if k_n <= BINNED_MAX_K and cell_lists_applicable(box, cutoff):
         return "binned"
+    if sorting.window_chunk_bound(n_atoms, box, cutoff) < -(-n_atoms // sorting.CHUNK_ATOMS):
+        return "sorted"
     return "sweep"
 
 
@@ -159,21 +206,25 @@ def _empty_lists(n_frames, n_rows, k_n, device, extra_floats=0, extra_ints=0):
 
 
 @functools.lru_cache(maxsize=64)
-def _extract_geometry(box: tuple, cutoff: float):
+def _extract_geometry(box: tuple | None, cutoff: float):
     """``(box, 1/box, squared-cutoff threshold, cells per axis)`` of a box
-    given as a tuple of 3 floats."""
+    given as a tuple of 3 floats; zeros and no cells for ``None`` (open
+    boundaries)."""
+    if box is None:
+        return (0.0,) * 3, (0.0,) * 3, squared_cutoff(cutoff), None
     b, ib = box_scalars(box, "the neighbor extract")
     return b, ib, squared_cutoff(cutoff), cells_per_axis(b, cutoff)
 
 
-def _box_key(box) -> tuple:
-    """The box as a tuple of floats, the cache key of ``_extract_geometry``."""
+def _box_key(box) -> tuple | None:
+    """The box as a tuple of floats (``None`` stays), the cache key of
+    ``_extract_geometry``."""
     if box is None:
-        raise ValueError(
-            "the neighbor extract applies the minimum image and needs a periodic box; "
-            "got box=None"
-        )
-    return tuple(float(x) for x in np.asarray(box, dtype=np.float64).reshape(-1))
+        return None
+    key = tuple(float(x) for x in np.asarray(box, dtype=np.float64).reshape(-1))
+    if len(key) != 3:
+        raise ValueError(f"box must hold 3 edge lengths, got {len(key)}")
+    return key
 
 
 def neighbor_extract(
@@ -184,16 +235,19 @@ def neighbor_extract(
     k_n: int,
     n_species: int,
     centers=None,
+    with_idx: bool = False,
 ):
-    """Per-center neighbor lists ``(rx, ry, rz, d, sid, counts)``.
+    """Per-center neighbor lists ``(rx, ry, rz, d, sid, counts)``, and
+    ``idx`` after them with ``with_idx``.
 
     ``positions`` ``(F, N, 3)`` float32 contiguous, ``species_id`` ``(N,)``
-    int32 (outside ``[0, n_species)`` is padding), ``box`` 3 edge lengths.
-    The contract is ``ops/adf.py::neighbor_extract_reference``'s: ``(F, N,
-    k_n)`` lists in ascending neighbor order, empty slots 0 and sid -1, and
+    int32 (outside ``[0, n_species)`` is padding), ``box`` 3 edge lengths or
+    ``None`` for open boundaries. The contract is
+    ``ops/adf.py::neighbor_extract_reference``'s: ``(F, N, k_n)`` lists in
+    ascending neighbor order, empty slots 0 and sid -1 (idx -1), and
     ``counts`` ``(F, N)`` int32 the true in-cutoff count (above ``k_n`` the
     list is cut: the caller retries with a larger K). On CUDA tensors the
-    route is ``extract_route``'s.
+    route is ``extract_route``'s, the sweep where that is the sorted route.
 
     ``centers=(c0, c1)`` lists only the centers ``c0 <= i < c1`` against
     every atom: ``(F, c1 - c0, k_n)`` lists whose row ``i - c0`` equals row
@@ -205,9 +259,42 @@ def neighbor_extract(
     work on every rank whatever the box's density profile.
     """
     _check_extract(positions, species_id, cutoff, k_n, n_species, centers)
-    route = extract_route(_box_key(box), cutoff, k_n)
+    route = extract_route(_box_key(box), cutoff, k_n, positions.shape[1])
     extract = neighbor_extract_binned if route == "binned" else neighbor_extract_sweep
-    return extract(positions, species_id, box, cutoff, k_n, n_species, centers)
+    return extract(positions, species_id, box, cutoff, k_n, n_species, centers, with_idx)
+
+
+def _launch_sweep(positions, species_id, box, cutoff, k_n, n_species, c0, c1, with_idx,
+                  arcs=None, bound=0):
+    """One launch of the sweep kernel: the lists (and idx), and in the
+    window mode (``arcs``) the overflow flag, a 0-d int32 tensor (else
+    ``None``)."""
+    device = positions.device
+    (bx, by, bz), (ibx, iby, ibz), threshold, _ = _extract_geometry(_box_key(box), cutoff)
+    n_frames, n_atoms, _ = positions.shape
+    size = n_frames * (c1 - c0) * k_n
+    out, _, ints = _empty_lists(n_frames, c1 - c0, k_n, device,
+                                extra_ints=(size if with_idx else 0) + 1)
+    idx = ints[:size].view(n_frames, c1 - c0, k_n) if with_idx else None
+    overflow = ints[-1:].zero_() if arcs is not None else None
+    outputs = (*out, idx) if with_idx else out
+    if n_frames == 0 or c0 == c1:
+        return outputs, overflow
+    lib = _library()
+    with torch.cuda.device(device):
+        err = lib.adf_neighbor_extract_launch(
+            positions.data_ptr(), species_id.data_ptr(), *(t.data_ptr() for t in out),
+            idx.data_ptr() if with_idx else None,
+            n_frames, n_atoms, n_species, k_n, c0, c1 - c0,
+            n_atoms if species_id.dim() == 2 else 0, int(box is not None),
+            arcs.data_ptr() if arcs is not None else None,
+            arcs.shape[1] // 2 if arcs is not None else 0, bound,
+            overflow.data_ptr() if arcs is not None else None,
+            bx, by, bz, ibx, iby, ibz, threshold,
+            torch.cuda.current_stream(device).cuda_stream,
+        )
+    _raise_on(err, lib, "adf_neighbor_extract")
+    return outputs, overflow
 
 
 def neighbor_extract_sweep(
@@ -218,35 +305,29 @@ def neighbor_extract_sweep(
     k_n: int,
     n_species: int,
     centers=None,
+    with_idx: bool = False,
 ):
-    """:func:`neighbor_extract` through the sweep kernel, on any box; the
-    grid covers the stripe's centers only."""
+    """:func:`neighbor_extract` through the sweep kernel, on any box or with
+    open boundaries (``box=None``); the grid covers the stripe's centers
+    only."""
     c0, c1 = _check_extract(positions, species_id, cutoff, k_n, n_species, centers)
     if positions.device.type == "cpu":
         return neighbor_extract_reference(
-            positions, species_id, box, cutoff, k_n, n_species, (c0, c1)
+            positions, species_id, box, cutoff, k_n, n_species, (c0, c1), with_idx
         )
-    device = positions.device
-    _check_device(device)
-    (bx, by, bz), (ibx, iby, ibz), threshold, _ = _extract_geometry(_box_key(box), cutoff)
-    n_frames, n_atoms, _ = positions.shape
-    out, _, _ = _empty_lists(n_frames, c1 - c0, k_n, device)
-    if n_frames == 0 or c0 == c1:
-        return out
-    lib = _library()
-    with torch.cuda.device(device):
-        err = lib.adf_neighbor_extract_launch(
-            positions.data_ptr(), species_id.data_ptr(), *(t.data_ptr() for t in out),
-            n_frames, n_atoms, n_species, k_n, c0, c1 - c0,
-            bx, by, bz, ibx, iby, ibz, threshold,
-            torch.cuda.current_stream(device).cuda_stream,
-        )
-    _raise_on(err, lib, "adf_neighbor_extract")
-    neighbor_extract_sweep.launches += 1
-    return out
+    _check_device(positions.device)
+    outputs, _ = _launch_sweep(positions, species_id, box, cutoff, k_n, n_species, c0, c1,
+                               with_idx)
+    if positions.shape[0] and c1 > c0:
+        neighbor_extract_sweep.launches += 1
+        neighbor_extract_sweep.open_launches += box is None
+        neighbor_extract_sweep.idx_launches += with_idx
+    return outputs
 
 
 neighbor_extract_sweep.launches = 0
+neighbor_extract_sweep.open_launches = 0
+neighbor_extract_sweep.idx_launches = 0
 
 
 def neighbor_extract_binned(
@@ -257,17 +338,21 @@ def neighbor_extract_binned(
     k_n: int,
     n_species: int,
     centers=None,
+    with_idx: bool = False,
 ):
     """:func:`neighbor_extract` through the cell-list kernel.
 
-    Needs three or more cells on every axis and ``k_n <= BINNED_MAX_K`` on
-    CUDA tensors (``ValueError`` otherwise); coordinates may lie in any image.
-    A stripe bins every atom into the cells and lists the stripe's centers.
+    Needs a periodic box with three or more cells on every axis and ``k_n <=
+    BINNED_MAX_K`` on CUDA tensors (``ValueError`` otherwise); coordinates
+    may lie in any image. A stripe bins every atom into the cells and lists
+    the stripe's centers.
     """
     c0, c1 = _check_extract(positions, species_id, cutoff, k_n, n_species, centers)
+    if box is None:
+        raise ValueError("the binned extract needs a periodic box; box=None takes the sweep")
     if positions.device.type == "cpu":
         return neighbor_extract_reference(
-            positions, species_id, box, cutoff, k_n, n_species, (c0, c1)
+            positions, species_id, box, cutoff, k_n, n_species, (c0, c1), with_idx
         )
     device = positions.device
     _check_device(device)
@@ -280,26 +365,200 @@ def neighbor_extract_binned(
     n_frames, n_atoms, _ = positions.shape
     lib = _library()
     per_frame = lib.adf_neighbor_cells_scratch_ints(n_atoms, n_cells[0] * n_cells[1] * n_cells[2])
-    # scratch: the cell-sorted atoms as float4, the per-frame ints
+    size = n_frames * (c1 - c0) * k_n
+    idx_ints = size if with_idx else 0
+    # scratch: the cell-sorted atoms as float4, the per-frame ints (and idx first)
     out, sorted_atoms, ints = _empty_lists(
-        n_frames, c1 - c0, k_n, device, 4 * n_frames * n_atoms, n_frames * per_frame
+        n_frames, c1 - c0, k_n, device, 4 * n_frames * n_atoms, idx_ints + n_frames * per_frame
     )
+    idx = ints[:size].view(n_frames, c1 - c0, k_n) if with_idx else None
+    outputs = (*out, idx) if with_idx else out
     if n_frames == 0 or c0 == c1:
-        return out
+        return outputs
     with torch.cuda.device(device):
         err = lib.adf_neighbor_cells_launch(
             positions.data_ptr(), species_id.data_ptr(), *(t.data_ptr() for t in out),
-            ints.data_ptr(), sorted_atoms.data_ptr(),
+            idx.data_ptr() if with_idx else None,
+            ints[idx_ints:].data_ptr(), sorted_atoms.data_ptr(),
             n_frames, n_atoms, n_species, k_n, c0, c1 - c0, *n_cells,
             bx, by, bz, ibx, iby, ibz, threshold,
             torch.cuda.current_stream(device).cuda_stream,
         )
     _raise_on(err, lib, "adf_neighbor_cells")
     neighbor_extract_binned.launches += 1
-    return out
+    neighbor_extract_binned.idx_launches += with_idx
+    return outputs
 
 
 neighbor_extract_binned.launches = 0
+neighbor_extract_binned.idx_launches = 0
+
+
+def sorted_neighbor_extract(
+    positions: torch.Tensor,
+    species_id: torch.Tensor,
+    box,
+    cutoff: float,
+    k_n: int,
+    n_species: int,
+    sort: str = "z",
+    bound: int | None = None,
+):
+    """The sorted route: ``(rx, ry, rz, d, sid, counts, sid_sorted, overflow)``.
+
+    Counterpart of ``sorted_neighbor_extract`` (``pallas_adf.py:1214``). Each
+    frame is sorted in space by ``sort`` (``"z"``, or ``"brick"``: (z-slab,
+    serpentine y); ``ops/sorting.py``), each block of centers gets the arcs of
+    the sorted order that may hold its neighbors, and the sweep kernel tests
+    those atoms only. The lists are ``neighbor_extract_reference``'s on the
+    sorted frames: rows in sorted center order, slots in ascending sorted j,
+    the same neighbor sets as the unsorted extract once the centers are
+    permuted back (``sorting.spatial_sort``'s ``order``). ``sid_sorted``
+    ``(F, N)`` int32 holds each frame's sorted ids, the center species of the
+    rows. ``overflow`` (0-d int32) is 1 where some block's window covers more
+    than ``bound`` chunks (``sorting.window_chunk_bound`` /
+    ``brick_window_bound``; never with ``bound=None``): the lists are exact
+    all the same, the window is swept whole, but the frames are far from the
+    density the route was sized for, and the JAX contract has the caller
+    repeat on the plain sweep (``parallel/sharded_ops.py::AdfBatchRunner``).
+    Needs a periodic box.
+    """
+    _check_extract(positions, species_id, cutoff, k_n, n_species)
+    if box is None:
+        raise ValueError("the sorted route needs a periodic box; box=None takes the sweep")
+    n_frames, n_atoms, _ = positions.shape
+    limit = -(-n_atoms // sorting.CHUNK_ATOMS) if bound is None else int(bound)
+    if positions.device.type == "cpu":
+        *lists, sid_s = sorted_neighbor_extract_reference(
+            positions, species_id, box, cutoff, k_n, n_species, sort
+        )
+        overflow = torch.zeros((), dtype=torch.int32)
+        if bound is not None and n_frames:
+            total = sorting.sort_frames(positions, species_id, n_species, box, cutoff, sort)[4]
+            overflow = (total.max() > limit).to(torch.int32)
+        return (*lists, sid_s, overflow)
+    _check_device(positions.device)
+    pos_s, sid_s, _, arcs, _ = sorting.sort_frames(
+        positions, species_id, n_species, box, cutoff, sort
+    )
+    sid_s = sid_s.to(torch.int32)
+    lists, overflow = _launch_sweep(pos_s, sid_s, box, cutoff, k_n, n_species, 0, n_atoms,
+                                    False, arcs.contiguous(), limit)
+    if n_frames and n_atoms:
+        sorted_neighbor_extract.launches[sort] += 1
+    return (*lists, sid_s, overflow.view(()))
+
+
+sorted_neighbor_extract.launches = {"z": 0, "brick": 0}
+
+
+def neighbor_indices(
+    positions: torch.Tensor, species_id: torch.Tensor, box, cutoff: float, k_n: int,
+    n_species: int,
+) -> torch.Tensor:
+    """``idx`` ``(F, N, k_n)`` int32: each center's in-cutoff neighbors' atom
+    indices in ascending order, -1 in empty slots (counterpart of
+    ``neighbor_indices_pallas``, ``pallas_adf.py:1395``); ``box=None`` for
+    open boundaries. The route is :func:`neighbor_extract`'s."""
+    return neighbor_extract(positions, species_id, box, cutoff, k_n, n_species,
+                            with_idx=True)[6]
+
+
+def neighbor_components(
+    positions: torch.Tensor, species_id: torch.Tensor, box, cutoff: float, k_n: int,
+    n_species: int,
+):
+    """``((rx, ry, rz), d, sid, sid_pad, max_count)``, the structure-of-arrays
+    lists of :func:`neighbor_extract` (counterpart of
+    ``pallas_neighbor_components``, ``pallas_adf.py:1449``): each ``(F, N,
+    k_n)``, ``sid_pad`` the centers' species (the port pads no atoms:
+    ``species_id`` itself) and ``max_count`` a 0-d int32 tensor, the largest
+    true count (above ``k_n``: the lists are cut; the JAX kernel reports at
+    most ``k_n``)."""
+    rx, ry, rz, d, sid_n, counts = neighbor_extract(
+        positions, species_id, box, cutoff, k_n, n_species
+    )
+    return (rx, ry, rz), d, sid_n, species_id, _max_count(counts)
+
+
+def neighbor_lists(
+    positions: torch.Tensor, species_id: torch.Tensor, box, cutoff: float, k_n: int,
+    n_species: int,
+):
+    """``(r_n, d, sid, sid_pad, max_count)`` as :func:`neighbor_components`
+    with the displacements stacked ``(F, N, k_n, 3)`` (counterpart of
+    ``pallas_neighbor_lists``, ``pallas_adf.py:1422``)."""
+    (rx, ry, rz), d, sid_n, sid_pad, max_count = neighbor_components(
+        positions, species_id, box, cutoff, k_n, n_species
+    )
+    return torch.stack([rx, ry, rz], dim=-1), d, sid_n, sid_pad, max_count
+
+
+def _max_count(counts: torch.Tensor) -> torch.Tensor:
+    if counts.numel() == 0:
+        return torch.zeros((), dtype=torch.int32, device=counts.device)
+    return counts.max()
+
+
+def frame_angle_histograms(
+    positions, species_id, box, cutoff: float, k_n: int, n_species: int, n_bins: int,
+    norm_power: int = 4, sort: str | None = None, bound: int | None = None, centers=None,
+):
+    """``(hists (F, n_triples, n_bins), counts, overflow)``: the neighbor
+    extract, then the angle histogram of each frame. ``sort=None`` takes
+    :func:`neighbor_extract` (its route; ``centers`` a stripe) and
+    ``overflow`` is ``None``; ``sort="z"`` or ``"brick"`` the sorted route
+    with ``bound``, each frame's angle histogram with its sorted center
+    species (one launch a frame)."""
+    if sort is None:
+        *lists, counts = neighbor_extract(positions, species_id, box, cutoff, k_n, n_species,
+                                          centers=centers)
+        c0, c1 = (0, positions.shape[1]) if centers is None else centers
+        return adf_pairs_histogram(*lists, counts, species_id[c0:c1], n_bins, n_species,
+                                   norm_power), counts, None
+    *lists, counts, sid_s, overflow = sorted_neighbor_extract(
+        positions, species_id, box, cutoff, k_n, n_species, sort, bound
+    )
+    hists = [
+        adf_pairs_histogram(*(t[f:f + 1] for t in lists), counts[f:f + 1], sid_s[f], n_bins,
+                            n_species, norm_power)
+        for f in range(positions.shape[0])
+    ]
+    if not hists:
+        return torch.zeros((0, n_triples_for(n_species), n_bins), dtype=torch.float32,
+                           device=positions.device), counts, overflow
+    return torch.cat(hists), counts, overflow
+
+
+def adf_histogram(
+    positions: torch.Tensor,
+    species_id: torch.Tensor,
+    box,
+    cutoff: float,
+    n_bins: int,
+    n_species: int,
+    norm_power: int = 4,
+    k_n: int = 128,
+):
+    """``(hist (n_triples, n_bins) float32, max_count)``: the angle histogram
+    of the frames of ``positions``, summed (not density-normalised), and the
+    largest true neighbor count, a 0-d int32 tensor (counterpart of
+    ``adf_histogram_pallas``, ``pallas_adf.py:2173``).
+
+    The neighbor extract takes ``extract_route``'s route (the sweep for
+    ``box=None``; the sorted route with ``sort_for``'s sort and no bound),
+    then the angle histogram. ``max_count > k_n`` means the lists were cut
+    and the histogram under-counts: retry with a larger ``k_n`` (the JAX
+    function reports ``k_n`` there).
+    """
+    _check_extract(positions, species_id, cutoff, k_n, n_species)
+    n_atoms = positions.shape[1]
+    sorted_route = extract_route(_box_key(box), cutoff, k_n, n_atoms) == "sorted"
+    per_frame, counts, _ = frame_angle_histograms(
+        positions, species_id, box, cutoff, k_n, n_species, n_bins, norm_power,
+        sort_for(n_atoms) if sorted_route else None,
+    )
+    return per_frame.sum(0), _max_count(counts)
 
 
 def adf_pairs_histogram(

@@ -30,7 +30,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from ..ops import adf_kernel, correlation, msd, rdf_kernel
+from ..ops import adf_kernel, correlation, msd, rdf_kernel, sorting
 from ..ops.adf import n_triples_for
 from .mesh import Mesh, data_sharding, get_default_mesh
 
@@ -131,14 +131,18 @@ def sharded_rdf_histogram_2d(
 
 
 class AdfPlan:
-    """Neighbor-list width K for the ADF, and its escalation on saturation.
+    """Neighbor-list width K for the ADF, whether the sorted route may run,
+    and their escalation.
 
     K starts from the density: the expected in-cutoff count plus six
     standard deviations plus 16 (``sharded_ops.py:274-276`` of the JAX
     package; per-center counts are Poisson-like), rounded up to 8 and
     clipped to [24, 512] and to the atom count. The extract reports true
     counts, so a saturated run (largest count above K) escalates to at
-    least that count, and one retry always suffices.
+    least that count, and one retry always suffices. ``use_sorted`` starts
+    True: the extract takes the sorted route where ``extract_route`` names
+    it; a run whose windows overflowed their bound turns it off, and the run
+    is repeated on the sweep (JAX ``sharded_ops.py:419-425``).
     """
 
     def __init__(self, n_avail: int, box, cutoff: float):
@@ -149,14 +153,20 @@ class AdfPlan:
         k_n = int(np.clip(-(-int(np.ceil(k_tight)) // 8) * 8, 24, 512))
         self.n_avail = n_avail
         self.k_n = max(1, min(k_n, n_avail))
+        self.use_sorted = True
 
-    def escalate(self, max_count: int) -> bool:
-        """Widen K after a saturated run; False when the run was exact."""
-        if max_count <= self.k_n or self.k_n >= self.n_avail:
-            return False
-        wanted = max(2 * self.k_n, -(-max_count // 8) * 8)
-        self.k_n = min(wanted, self.n_avail)
-        return True
+    def escalate(self, max_count: int, overflow: bool = False) -> bool:
+        """Widen K after a saturated run, and leave the sorted route after an
+        overflowed one; False when the run stands."""
+        repeat = False
+        if overflow and self.use_sorted:
+            self.use_sorted = False
+            repeat = True
+        if max_count > self.k_n and self.k_n < self.n_avail:
+            wanted = max(2 * self.k_n, -(-max_count // 8) * 8)
+            self.k_n = min(wanted, self.n_avail)
+            repeat = True
+        return repeat
 
 
 #: bytes of neighbor lists one launch may hold (rx, ry, rz, d, sid)
@@ -164,31 +174,39 @@ LIST_BYTES = 2**30
 
 
 def _adf_frames(positions, species_id, box, cutoff, k_n, n_species, n_bins, norm_power,
-                centers=None):
+                centers=None, use_sorted=False):
     """Angle histogram ``(n_triples, n_bins)`` float32 of the frames of
-    ``positions`` (summed), and their largest neighbor count (an int32
-    scalar tensor), on the device: the neighbor extract, then the angle
-    histogram, per launch chunk of frames; ``centers=(c0, c1)`` takes the
-    stripe's centers only. No host synchronisation."""
+    ``positions`` (summed), their largest neighbor count and the sorted
+    route's overflow flag (int32 scalar tensors), on the device: the
+    neighbor extract, then the angle histogram, per launch chunk of frames;
+    ``centers=(c0, c1)`` takes the stripe's centers only. With
+    ``use_sorted``, all centers and ``extract_route`` naming it, the extract
+    sorts each frame (``sort_for``'s sort, the sort's window bound) and the
+    angle histogram takes each frame's sorted center species. No host
+    synchronisation."""
     n_frames, n_atoms, _ = positions.shape
     c0, c1 = (0, n_atoms) if centers is None else centers
     device = positions.device
     hist = torch.zeros((n_triples_for(n_species), n_bins), dtype=torch.float32, device=device)
     max_count = torch.zeros((), dtype=torch.int32, device=device)
+    overflow = torch.zeros((), dtype=torch.int32, device=device)
     if c1 == c0:
-        return hist, max_count
-    sid_c = species_id[c0:c1]
+        return hist, max_count, overflow
+    sort = bound = None
+    if use_sorted and centers is None and adf_kernel.extract_route(box, cutoff, k_n, n_atoms) == "sorted":
+        sort = adf_kernel.sort_for(n_atoms)
+        bound = sorting.window_bound(sort, n_atoms, box, cutoff)
     chunk = max(1, LIST_BYTES // max((c1 - c0) * k_n * 20, 1))
     for f0 in range(0, n_frames, chunk):
-        *lists, counts = adf_kernel.neighbor_extract(
-            positions[f0 : f0 + chunk], species_id, box, cutoff, k_n, n_species,
-            centers=centers,
+        per_frame, counts, flag = adf_kernel.frame_angle_histograms(
+            positions[f0 : f0 + chunk], species_id, box, cutoff, k_n, n_species, n_bins,
+            norm_power, sort, bound, centers,
         )
-        hist += adf_kernel.adf_pairs_histogram(
-            *lists, counts, sid_c, n_bins, n_species, norm_power
-        ).sum(0)
+        hist += per_frame.sum(0)
         max_count = torch.maximum(max_count, counts.max())
-    return hist, max_count
+        if flag is not None:
+            overflow = torch.maximum(overflow, flag)
+    return hist, max_count, overflow
 
 
 class AdfBatchRunner:
@@ -198,10 +216,13 @@ class AdfBatchRunner:
     frames of it (split over every mesh axis) through the neighbor extract
     and the angle histogram, then the histogram summed over the ranks; it
     never waits for the device on one GPU. ``finalize`` syncs once: the
-    largest neighbor count is reduced (MAX) over the ranks, so every rank
-    takes the same decision; if some center had more neighbors than K, the
-    plan has escalated, the sums are reset and it returns ``None``, and the
-    caller feeds every batch again.
+    largest neighbor count and the sorted route's overflow flag are reduced
+    (MAX) over the ranks, so every rank takes the same decision; if some
+    center had more neighbors than K, or some window overflowed its bound,
+    the plan has escalated (a wider K, the sweep), the sums are reset and it
+    returns ``None``, and the caller feeds every batch again. The route does
+    not change the lists' sets, so neither the result nor the batch split
+    depends on it.
 
     ``normalize_per_batch`` (the bin width) divides each batch's histogram,
     summed over the ranks first, by its own ``total * bin_width`` per triple
@@ -235,7 +256,7 @@ class AdfBatchRunner:
 
     def _reset(self) -> None:
         self._hist = None
-        self._max_count = None
+        self._flags = None  # (largest count, overflow)
         self._fed = 0
 
     def feed(self, positions: torch.Tensor) -> None:
@@ -243,27 +264,26 @@ class AdfBatchRunner:
         over the ranks (one-frame batches go to each rank in turn)."""
         lo, hi = data_sharding(self.mesh, positions.shape[0], turn=self._fed)
         self._fed += 1
-        hist, max_count = _adf_frames(
+        hist, max_count, overflow = _adf_frames(
             positions[lo:hi], self.species_id, self.box, self.cutoff, self.plan.k_n,
-            self.n_species, self.n_bins, self.norm_power,
+            self.n_species, self.n_bins, self.norm_power, use_sorted=self.plan.use_sorted,
         )
         hist = _all_reduce(hist, self.mesh)
         if self.bin_width is not None:
             total = hist.sum(1, keepdim=True)
             hist = torch.where(total > 0, hist / (total * self.bin_width), 0.0)
         self._hist = hist if self._hist is None else self._hist + hist
-        self._max_count = (
-            max_count if self._max_count is None
-            else torch.maximum(self._max_count, max_count)
-        )
+        flags = torch.stack([max_count, overflow])
+        self._flags = flags if self._flags is None else torch.maximum(self._flags, flags)
 
     def finalize(self) -> torch.Tensor | None:
         """The accumulated ``(n_triples, n_bins)`` float32 histogram on the
-        device, or ``None`` after a saturated run (feed every batch again)."""
+        device, or ``None`` after a saturated or overflowed run (feed every
+        batch again)."""
         if self._hist is None:
             raise ValueError("finalize() before any feed()")
-        max_count = _all_reduce(self._max_count.reshape(1), self.mesh, dist.ReduceOp.MAX)
-        if self.plan.escalate(int(max_count)):
+        max_count, overflow = _all_reduce(self._flags, self.mesh, dist.ReduceOp.MAX).tolist()
+        if self.plan.escalate(max_count, bool(overflow)):
             self._reset()
             return None
         return self._hist
@@ -328,7 +348,7 @@ def sharded_adf_histogram_2d(
     lo, hi = data_sharding(mesh, positions.shape[0], "data")
     centers = data_sharding(mesh, positions.shape[1], "atoms")
     while True:
-        hist, max_count = _adf_frames(
+        hist, max_count, _ = _adf_frames(
             positions[lo:hi], species_id, box, cutoff, plan.k_n, n_species, n_bins,
             norm_power, centers=centers,
         )

@@ -257,8 +257,10 @@ def test_wrappers_check_their_inputs():
         adf_kernel.neighbor_extract(pos_t, sid_t.long(), box, 2.0, 8, 1)
     with pytest.raises(ValueError, match="contiguous"):
         adf_kernel.neighbor_extract(pos_t[:, ::2], sid_t[:10], box, 2.0, 8, 1)
-    with pytest.raises(ValueError, match="periodic box"):
-        adf_kernel.neighbor_extract(pos_t, sid_t, None, 2.0, 8, 1)
+    with pytest.raises(ValueError, match="3 edge lengths"):
+        adf_kernel.neighbor_extract(pos_t, sid_t, [5.0, 5.0], 2.0, 8, 1)
+    # box=None is open boundaries (the sweep), not an error
+    assert adf_kernel.neighbor_extract(pos_t, sid_t, None, 2.0, 8, 1)[5].shape == (1, 20)
     *lists, counts = adf_kernel.neighbor_extract(pos_t, sid_t, box, 2.0, 8, 1)
     with pytest.raises(ValueError, match="counts must have shape"):
         adf_kernel.adf_pairs_histogram(*lists, counts[:, :5], sid_t, 10, 1)

@@ -67,14 +67,16 @@ def test_cells_per_axis_keep_the_margin(box, cutoff, expected):
 
 def test_extract_route_rule():
     route = adf_kernel.extract_route
-    assert route([40.0] * 3, 3.6, 88) == "binned"  # the ADF main path
-    assert route([74.27] * 3, 3.6, 88) == "binned"
-    assert route([40.0] * 3, 3.6, adf_kernel.BINNED_MAX_K) == "binned"
-    assert route([11.0] * 3, 3.6, 8) == "binned"  # three cells per axis
-    assert route([40.0] * 3, 3.6, adf_kernel.BINNED_MAX_K + 1) == "sweep"  # too wide
-    assert route([10.0] * 3, 3.6, 88) == "sweep"  # two cells per axis
-    assert route([40.0, 40.0, 10.0], 3.6, 88) == "sweep"  # one short axis
-    assert route([10.0] * 3, 6.0, 2000) == "sweep"
+    n = 10240
+    assert route([40.0] * 3, 3.6, 88, n) == "binned"  # the ADF main path
+    assert route([74.27] * 3, 3.6, 88, n) == "binned"
+    assert route([40.0] * 3, 3.6, adf_kernel.BINNED_MAX_K, n) == "binned"
+    assert route([11.0] * 3, 3.6, 8, n) == "binned"  # three cells per axis
+    # too wide for the binned route: the z window (~0.19 of the frame) is sorted
+    assert route([40.0] * 3, 3.6, adf_kernel.BINNED_MAX_K + 1, n) == "sorted"
+    assert route([10.0] * 3, 3.6, 88, n) == "sweep"  # two cells per axis, the window the frame
+    assert route([40.0, 40.0, 10.0], 3.6, 88, n) == "sweep"  # one short axis: z
+    assert route([10.0] * 3, 6.0, 2000, n) == "sweep"
 
 
 # ------------------------------------------------------------------ binning

@@ -128,7 +128,7 @@ def test_neighbor_extract_matches_plain_exactly(cuda, counts, n_frames, box, cut
     for a, b in zip(ours, plain):
         assert a.dtype == b.dtype and a.shape == b.shape
         assert torch.equal(a, b)
-    route = adf_kernel.extract_route(box, cutoff, k_n)
+    route = adf_kernel.extract_route(box, cutoff, k_n, pos.shape[1])
     wrapper = getattr(adf_kernel, f"neighbor_extract_{route}")
     launches = wrapper.launches
     ours = adf_kernel.neighbor_extract(*args)
@@ -629,3 +629,70 @@ def test_a_world_of_one_on_nccl_gives_the_no_group_result(cuda, tmp_path, monkey
     for name in ("EinsteinDiffusionCoefficients", "walk Einstein"):
         assert_einstein_close(world[name], ref[name])
     assert_gk_close(world["GreenKuboDiffusionCoefficients"], ref["GreenKuboDiffusionCoefficients"])
+
+
+# ------------------------------------------------ K2 modes: idx, open, sorted
+@pytest.mark.parametrize("route", ["binned", "sweep"])
+def test_idx_output_matches_plain(cuda, route):
+    """``with_idx`` on both routes: all seven outputs equal the plain version
+    bit for bit, and each route counts an idx launch."""
+    pos, sid = _case([1200, 1200], 2, (26.0, 26.0, 26.0), seed=21, device=cuda)
+    sid[4:6] = 2
+    args = (pos, sid, (26.0, 26.0, 26.0), 3.6, 48, 2)
+    wrapper = getattr(adf_kernel, f"neighbor_extract_{route}")
+    launches = wrapper.idx_launches
+    ours = wrapper(*args, with_idx=True)
+    torch.cuda.synchronize()
+    assert wrapper.idx_launches == launches + 1
+    plain = neighbor_extract_reference(*args, with_idx=True)
+    for a, b in zip(ours, plain):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    assert torch.equal(adf_kernel.neighbor_indices(*args), plain[6])
+
+
+def test_open_boundaries_match_plain(cuda):
+    """``box=None`` on the sweep (a droplet in no box), with idx."""
+    pos, sid = _case([800, 700], 2, (18.0, 18.0, 18.0), seed=22, device=cuda)
+    args = (pos, sid, None, 3.6, 64, 2)
+    launches = adf_kernel.neighbor_extract_sweep.open_launches
+    ours = adf_kernel.neighbor_extract(*args, with_idx=True)
+    torch.cuda.synchronize()
+    assert adf_kernel.neighbor_extract_sweep.open_launches == launches + 1
+    plain = neighbor_extract_reference(*args, with_idx=True)
+    assert all(torch.equal(a, b) for a, b in zip(ours, plain))
+    hist, max_count = adf_kernel.adf_histogram(pos, sid, None, 3.6, 100, 2, k_n=64)
+    h_plain = adf_pairs_histogram_reference(*plain[:6], sid, 100, 2).sum(0)
+    assert int(max_count) == int(plain[5].max())
+    _assert_adf_close(hist, h_plain)
+
+
+@pytest.mark.parametrize("sort", ["z", "brick"])
+def test_sorted_route_matches_plain_and_the_sweep(cuda, sort):
+    """The window mode on sorted frames: equal to the plain sorted extract bit
+    for bit, ``sid_sorted`` and no overflow under the sort's bound, the flag
+    under a bound of one chunk (the lists exact all the same), and each
+    center's set equal to the sweep's once the permutation is undone."""
+    from lammps_analysis_tpu_torch.ops import sorting
+    from lammps_analysis_tpu_torch.ops.adf import sorted_neighbor_extract_reference
+
+    box = (24.0, 24.0, 48.0)
+    pos, sid = _case([3000, 3000], 2, box, seed=23, device=cuda)
+    args = (pos, sid, box, 4.0, 96, 2)
+    bound = sorting.window_bound(sort, pos.shape[1], box, 4.0)
+    launches = adf_kernel.sorted_neighbor_extract.launches[sort]
+    *lists, sid_s, overflow = adf_kernel.sorted_neighbor_extract(*args, sort, bound)
+    torch.cuda.synchronize()
+    assert adf_kernel.sorted_neighbor_extract.launches[sort] == launches + 1
+    plain = sorted_neighbor_extract_reference(*args, sort)
+    assert all(torch.equal(a, b) for a, b in zip((*lists, sid_s), plain))
+    assert int(overflow) == 0
+    *narrow, _, flag = adf_kernel.sorted_neighbor_extract(*args, sort, 1)
+    assert int(flag) == 1 and all(torch.equal(a, b) for a, b in zip(narrow, lists))
+    _, _, order, _, _ = sorting.sort_frames(pos, sid, 2, box, 4.0, sort)
+    sweep = adf_kernel.neighbor_extract_sweep(*args)
+    for fr in range(2):
+        inv = torch.empty_like(order[fr])
+        inv[order[fr]] = torch.arange(order.shape[1], device=cuda)
+        assert torch.equal(lists[5][fr][inv], sweep[5][fr])
+        d_ours = torch.sort(lists[3][fr][inv], dim=1).values
+        assert torch.equal(d_ours, torch.sort(sweep[3][fr], dim=1).values)
