@@ -27,7 +27,8 @@ Phases, one line each (any failure raises and the exit code is not 0):
      stripe's time and bound (the triangle's imbalance);
    * ``[2 extract]`` both routes of the ADF neighbor extract (the sweep and
      the cell lists), all six outputs equal (a saturated binned case on the
-     rows that fit K and on ``counts``), with the routes' times side by side;
+     rows that fit K and on ``counts``; a dense case whose counts cross the
+     sweep's 32-slot lines), with the routes' times side by side;
      the center stripe (the 2-D ADF's mode) of both routes on 8 frames x
      10240 atoms: stripes of 1, 2 and 4 equal to the plain version and to the
      rows of the full launch, the first of two timed with its bound; the
@@ -38,6 +39,9 @@ Phases, one line each (any failure raises and the exit code is not 0):
      1024): equal to the plain sorted extract bit for bit, no overflow under
      the sort's bound, every atom's neighbor set equal to the sweep's; each
      mode's device time beside the sweep's and one bound, the widest window;
+     beside each sweep mode's bound its own test floor (the tests the sweep
+     makes, every center against every atom of its range, at 22 float32
+     operations over the peak: ``floor_ms`` in its kernel records);
    * ``[2 angles]`` the ADF angle histogram on those lists, K > 1024 too,
      a frame of mixed widths (a dense cluster among first shells), 64 frames
      in one launch and seeded lists with 0, 1, 2, 32, 33, K and more entries
@@ -166,7 +170,9 @@ Phases, one line each (any failure raises and the exit code is not 0):
 and the angle kernel's one-frame launch, for an A/B of two checkouts on one
 card. ``--acf-batches`` times the windowed ACF over a 10^6-row system
 series with 32-window FFT batches and with the default ones, in turns.
-``--chunks`` times
+``--extract`` runs only ``[1 build]``, the neighbor extract's cases of ``[2
+extract]`` and ``[3 adf-wide]``, for an A/B of two checkouts' sweep kernels
+on one card. ``--chunks`` times
 the angle kernel at several chunk sizes (``adf_kernel.PAIRS_CHUNK``) on the
 one-frame launch, the mixed frame, K = 1076 and 16 main-path frames.
 
@@ -542,6 +548,14 @@ def bound(flops: float, n_bytes: float) -> tuple[float, str]:
     return (by_ops, "operations") if by_ops >= by_bytes else (by_bytes, "bytes")
 
 
+def sweep_floor(tests: float) -> float:
+    """The sweep kernel's own floor in milliseconds: the distance tests it
+    makes (every center against every atom of its range), ~22 float32
+    operations each, over the float32 peak. Beside the function's bound,
+    which counts only the tests a 27-cell neighborhood needs."""
+    return 22 * tests / PEAK_FP32_FLOPS * 1e3
+
+
 def kernel_vs_plain() -> dict:
     from lammps_analysis_tpu_torch.ops import rdf_kernel
     from lammps_analysis_tpu_torch.ops.rdf import rdf_histogram_reference
@@ -838,11 +852,16 @@ def extract_stripes() -> dict:
         plain_ms = time_ms(lambda: neighbor_extract_reference(*args, centers=(lo, hi)), 1)
         bound_ms, bound_by = extract_bound(pos, sid, ADF["box"], ADF["cutoff"], 2, k_n, counts, (lo, hi))
         records[route] = dict(max_diff=0.0, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
+        floor = ""
+        if route == "sweep":
+            records[route]["floor_ms"] = sweep_floor(pos.shape[0] * (hi - lo) * n)
+            floor = (f", the sweep's test floor {records[route]['floor_ms']:.4f} ms "
+                     f"({100 * records[route]['floor_ms'] / ms:.1f} % of it)")
         phase("2 extract", f"center stripes, {route}: stripes of 1, 2 and 4 of 8 x {n} atoms at K={k_n} "
               f"each equal to the plain version and to the rows of the full launch (all six outputs); "
               f"the first of 2 stripes {ms:.4f} ms on the device against the full launch's "
               f"{full_ms:.4f} ms ({ms / full_ms:.2f} x), bound {bound_ms:.4f} ms ({bound_by}; "
-              f"{100 * bound_ms / ms:.1f} % of it), plain {plain_ms:.3f} ms")
+              f"{100 * bound_ms / ms:.1f} % of it){floor}, plain {plain_ms:.3f} ms")
     return records
 
 
@@ -885,9 +904,13 @@ def extract_modes() -> dict:
                                            idx=True)
         records[f"{record} idx"] = dict(max_diff=0.0, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                                         bound_by=bound_by)
+        floor = ""
+        if route == "sweep":
+            records[f"{record} idx"]["floor_ms"] = f_ms = sweep_floor(pos.shape[0] * pos.shape[1] ** 2)
+            floor = f"; the sweep's test floor {f_ms:.4f} ms ({100 * f_ms / ms:.1f} % of it)"
         phase("2 extract", f"idx, {route}: 16 x {pos.shape[1]} atoms at K={k_n}, all seven outputs equal "
               f"to the plain version; {ms:.4f} ms on the device with idx, {lean_ms:.4f} ms without; bound "
-              f"{bound_ms:.4f} ms ({bound_by}; {100 * bound_ms / ms:.1f} % of it); plain {plain_ms:.3f} ms")
+              f"{bound_ms:.4f} ms ({bound_by}; {100 * bound_ms / ms:.1f} % of it){floor}; plain {plain_ms:.3f} ms")
     del plain
 
     pos, sid = droplet(2, 82, device)
@@ -904,13 +927,14 @@ def extract_modes() -> dict:
     tests = open_needed_tests(pos, c["cutoff"])
     n = pos.shape[1]
     bound_ms, bound_by = bound(22 * tests + int(plain[5].sum()), 2 * n * 12 + n * 4 + 2 * n * (c["k_n"] * 20 + 4))
+    floor_ms = sweep_floor(2 * n * n)
     records["adf_neighbor_extract open"] = dict(max_diff=0.0, ms=ms, plain_ms=plain_ms,
-                                               bound_ms=bound_ms, bound_by=bound_by)
+                                               bound_ms=bound_ms, bound_by=bound_by, floor_ms=floor_ms)
     phase("2 extract", f"open boundaries, sweep: a droplet of 2 x {n} atoms (radius {c['radius']} A, no box), "
           f"K={c['k_n']}, mean count {float(plain[5].float().mean()):.2f}, largest {int(plain[5].max())}; "
           f"all seven outputs equal to the plain version; {ms:.4f} ms on the device, bound {bound_ms:.4f} ms "
-          f"({bound_by}, {tests / 1e6:.1f} M tests in 27 cells; {100 * bound_ms / ms:.1f} % of it); plain "
-          f"{plain_ms:.3f} ms")
+          f"({bound_by}, {tests / 1e6:.1f} M tests in 27 cells; {100 * bound_ms / ms:.1f} % of it), the "
+          f"sweep's test floor {floor_ms:.4f} ms ({100 * floor_ms / ms:.1f} % of it); plain {plain_ms:.3f} ms")
     del plain, ours
 
     c = WIDE
@@ -951,9 +975,12 @@ def extract_modes() -> dict:
         call_ms = time_ms(lambda: adf_kernel.sorted_neighbor_extract(*args, sort, limit), 3)
         plain_ms = time_ms(lambda: sorted_neighbor_extract_reference(*args, sort), 1)
         n_chunks = -(-n // sorting.CHUNK_ATOMS)
+        floor_ms = sweep_floor(window_tests(total, n))
         records[f"adf_neighbor_extract sorted {sort}"] = dict(
-            max_diff=0.0, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
-        line.append(f"{sort}: kernel {ms:.4f} ms on the device ({sweep_ms / ms:.2f} x the sweep), "
+            max_diff=0.0, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, floor_ms=floor_ms)
+        line.append(f"{sort}: kernel {ms:.4f} ms on the device ({sweep_ms / ms:.2f} x the sweep; "
+                    f"{100 * bound_ms / ms:.1f} % of the bound; the windows' test floor {floor_ms:.4f} ms, "
+                    f"{100 * floor_ms / ms:.1f} % of it), "
                     f"{call_ms:.4f} ms a call with the sort and the windows, widest window "
                     f"{int(total.max())} of {n_chunks} chunks (mean {float(total.float().mean()):.1f}, "
                     f"bound {limit}), plain {plain_ms:.3f} ms")
@@ -965,6 +992,19 @@ def extract_modes() -> dict:
     del reference
     torch.cuda.empty_cache()
     return records
+
+
+def window_tests(total, n_atoms: int) -> int:
+    """Distance tests of the window mode: each group of ``BLOCK_CENTERS``
+    sorted centers against the atoms of its window (``total``: chunks a
+    group covers, ``(F * groups,)``)."""
+    from lammps_analysis_tpu_torch.ops import sorting
+
+    groups = -(-n_atoms // sorting.BLOCK_CENTERS)
+    centers = torch.full((groups,), sorting.BLOCK_CENTERS, dtype=torch.int64)
+    centers[-1] = n_atoms - sorting.BLOCK_CENTERS * (groups - 1)
+    atoms = torch.clamp(total.view(-1, groups).cpu().long() * sorting.CHUNK_ATOMS, max=n_atoms)
+    return int((atoms * centers).sum())
 
 
 def pairs_bound(sid_n, counts, sid_c, n_species, n_hist):
@@ -1042,7 +1082,7 @@ def edge_lists(device, k_n=100, n_atoms=4096, n_frames=2):
     return lists, torch.from_numpy(counts).to(device), torch.from_numpy(sid_c).to(device), 2
 
 
-def adf_kernels_vs_plain() -> dict:
+def adf_kernels_vs_plain(angles: bool = True) -> dict:
     from lammps_analysis_tpu_torch.ops import adf_kernel
     from lammps_analysis_tpu_torch.ops.adf import (
         adf_pairs_histogram_reference,
@@ -1080,6 +1120,10 @@ def adf_kernels_vs_plain() -> dict:
             counts=[20000], box=(30.0, 30.0, 30.0), cutoff=3.2, k_n=96, n_frames=1,
             routes=both, reps=(10, 2),
         ),
+        "h dense, counts across the sweep's 32-slot lines": dict(
+            counts=[4000], box=(20.0, 20.0, 20.0), cutoff=3.1, k_n=120, n_frames=2,
+            routes=both, reps=(10, 2),
+        ),
     }
     device = torch.device("cuda")
     lists, results = {}, {}
@@ -1114,6 +1158,8 @@ def adf_kernels_vs_plain() -> dict:
             ms = device_ms(lambda: routes[route](*args), c["reps"][0], record)
             call_ms = time_ms(lambda: routes[route](*args), c["reps"][0])
             timed[route] = dict(max_diff=0.0, ms=ms, call_ms=call_ms)
+            if route == "sweep":
+                timed[route]["floor_ms"] = sweep_floor(c["n_frames"] * pos.shape[1] ** 2)
         plain_ms = time_ms(lambda: neighbor_extract_reference(*args), c["reps"][1])
         bound_ms, bound_by = extract_bound(pos, sid, c["box"], c["cutoff"], n_species, k_n, counts)
         for t in timed.values():
@@ -1121,7 +1167,9 @@ def adf_kernels_vs_plain() -> dict:
         chosen = adf_kernel.extract_route(c["box"], c["cutoff"], k_n, pos.shape[1])
         side = ", ".join(
             f"{r} {t['ms']:.4f} ms on the device, {t['call_ms']:.4f} ms a call back to back "
-            f"({100 * bound_ms / t['ms']:.1f} % of the bound)"
+            f"({100 * bound_ms / t['ms']:.1f} % of the bound"
+            + (f"; the sweep's test floor {t['floor_ms']:.4f} ms, {100 * t['floor_ms'] / t['ms']:.1f} % of it)"
+               if "floor_ms" in t else ")")
             for r, t in timed.items()
         )
         phase(
@@ -1137,6 +1185,8 @@ def adf_kernels_vs_plain() -> dict:
             lists[label.split()[0]] = (plain[:5], counts, sid, n_species)
         del plain
         torch.cuda.empty_cache()
+    if not angles:
+        return results
 
     # neighbor lists wider than 1024 (10 A box, 6 A cutoff), cut into chunks
     for key, n_atoms in (("k1", 1300), ("k2", 2000)):
@@ -3556,6 +3606,7 @@ def kernel_record(name: str, launches: int, cases: list, main: dict, mode: str =
         "bound_ms": main["bound_ms"],
         "bound_by": main["bound_by"],
         "library_ms": None,  # no single PyTorch call computes any of these
+        **({"floor_ms": main["floor_ms"]} if "floor_ms" in main else {}),
     }
 
 
@@ -3697,6 +3748,14 @@ def main() -> int:
     if sys.argv[1:] == ["--acf-batches"]:
         environment()
         acf_batches()
+        return 0
+    if sys.argv[1:] == ["--extract"]:
+        card = environment()
+        build()
+        adf_kernels_vs_plain(angles=False)
+        extract_stripes()
+        extract_modes()
+        adf_wide_path(card)
         return 0
     card = environment()
     build()

@@ -8,12 +8,14 @@ routes:
   lists, 27 neighbor cells per center;
 * ``neighbor_extract_sweep`` wraps ``csrc/adf_neighbor_extract.cu``: every
   center against every atom, under the minimum image or, with ``box=None``,
-  open boundaries;
+  open boundaries; it stages each center's kept slots in shared memory and
+  writes them a whole 128-byte line at a time, so ``_empty_lists`` starts
+  every output on a 128-byte boundary;
 * ``sorted_neighbor_extract`` runs the same kernel in its window mode on
   frames sorted in space (``ops/sorting.py``; counterpart of
-  ``sorted_neighbor_extract``, ``pallas_adf.py:1214``): each block of
-  centers tests only its window's atoms. Its lists come in sorted center
-  order, with the sorted frames' ids beside them.
+  ``sorted_neighbor_extract``, ``pallas_adf.py:1214``): each group of
+  ``sorting.BLOCK_CENTERS`` centers tests only its window's atoms. Its lists
+  come in sorted center order, with the sorted frames' ids beside them.
 
 The first two share one contract, ``ops/adf.py::neighbor_extract_reference``'s,
 and may add the neighbors' atom indices (``with_idx``; the TPU kernel's
@@ -87,12 +89,12 @@ def _library() -> ctypes.CDLL:
         + [ctypes.c_void_p]
     )
     lib.adf_neighbor_extract_launch.restype = ctypes.c_int
-    for fn in (lib.adf_neighbor_extract_block_centers, lib.adf_neighbor_extract_chunk_atoms):
+    for fn in (lib.adf_neighbor_extract_arc_centers, lib.adf_neighbor_extract_chunk_atoms):
         fn.argtypes, fn.restype = [], ctypes.c_int
-    shape = (lib.adf_neighbor_extract_block_centers(), lib.adf_neighbor_extract_chunk_atoms())
+    shape = (lib.adf_neighbor_extract_arc_centers(), lib.adf_neighbor_extract_chunk_atoms())
     if shape != (sorting.BLOCK_CENTERS, sorting.CHUNK_ATOMS):
         raise RuntimeError(
-            f"the sweep kernel's (block, chunk) {shape} differ from ops/sorting.py's "
+            f"the sweep kernel's (centers an arc list serves, chunk atoms) {shape} differ from ops/sorting.py's "
             f"{(sorting.BLOCK_CENTERS, sorting.CHUNK_ATOMS)}"
         )
     lib.adf_neighbor_cells_launch.argtypes = (
@@ -192,17 +194,24 @@ def _check_extract(positions, species_id, cutoff, k_n, n_species, centers=None) 
     return c0, c1
 
 
+def _lines(n: int) -> int:
+    """``n`` 4-byte elements rounded up to whole 128-byte lines."""
+    return -(-n // 32) * 32
+
+
 def _empty_lists(n_frames, n_rows, k_n, device, extra_floats=0, extra_ints=0):
     """``(rx, ry, rz, d, sid, counts)`` of ``n_rows`` centers uncleared, from
-    two allocations, with ``extra_floats`` (16-byte aligned) and
-    ``extra_ints`` more of scratch."""
-    size = n_frames * n_rows * k_n
-    floats = torch.empty(4 * size + extra_floats, dtype=torch.float32, device=device)
-    ints = torch.empty(size + n_frames * n_rows + extra_ints, dtype=torch.int32, device=device)
-    lists = floats[: 4 * size].view(4, n_frames, n_rows, k_n).unbind(0)
+    two allocations, with ``extra_floats`` and ``extra_ints`` more of scratch.
+    Each list and each scratch starts on a 128-byte boundary, where the sweep
+    kernel writes whole lines."""
+    size, rows = n_frames * n_rows * k_n, n_frames * n_rows
+    stride = _lines(size)
+    floats = torch.empty(4 * stride + extra_floats, dtype=torch.float32, device=device)
+    ints = torch.empty(stride + _lines(rows) + extra_ints, dtype=torch.int32, device=device)
+    lists = [floats[f * stride : f * stride + size].view(n_frames, n_rows, k_n) for f in range(4)]
     sid_n = ints[:size].view(n_frames, n_rows, k_n)
-    counts = ints[size : size + n_frames * n_rows].view(n_frames, n_rows)
-    return (*lists, sid_n, counts), floats[4 * size :], ints[size + n_frames * n_rows :]
+    counts = ints[stride : stride + rows].view(n_frames, n_rows)
+    return (*lists, sid_n, counts), floats[4 * stride :], ints[stride + _lines(rows) :]
 
 
 @functools.lru_cache(maxsize=64)

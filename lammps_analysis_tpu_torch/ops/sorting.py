@@ -31,7 +31,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-#: centers of one block of the sweep (``kCentersPerBlock`` in the kernel)
+#: centers one arc list serves (``kArcCenters`` in the kernel: two of its blocks)
 BLOCK_CENTERS = 32
 #: atoms of one window chunk (``kChunk`` in the kernel)
 CHUNK_ATOMS = 32

@@ -696,3 +696,102 @@ def test_sorted_route_matches_plain_and_the_sweep(cuda, sort):
         assert torch.equal(lists[5][fr][inv], sweep[5][fr])
         d_ours = torch.sort(lists[3][fr][inv], dim=1).values
         assert torch.equal(d_ours, torch.sort(sweep[3][fr], dim=1).values)
+
+
+# ------------------------------- the sweep's staged writes at their edges
+def _clusters(n_frames, seed, wrap, padding=True):
+    """Frames of tight clusters of 2, 32-34, 64-66 and 130 atoms (radius 0.45
+    A: each atom of a cluster of m has exactly m - 1 neighbors within 1 A)
+    and 300 lone atoms, 726 atoms in a 48 A box, in a random order: counts 0,
+    1, 31-33, 63-65 and 129 against K's 128-byte lines (32 slots) and the
+    64-slot rings, over two tiles of 512 atoms. One cluster sits on the box's
+    corner: with ``wrap`` its atoms lie on both sides of every periodic seam.
+    Lone atoms carry ids 0, 1 and, with ``padding``, a few 2 (padding of a
+    2-species layout, which the sorted route orders last); the second frame orders its atoms anew under the same id row, so some of
+    its cluster atoms are padding too."""
+    rng = np.random.default_rng(seed)
+    sizes = [32, 33, 34, 64, 65, 66, 2, 130]
+    grid = np.stack(np.meshgrid(*[np.arange(8.0)] * 3, indexing="ij"), -1).reshape(-1, 3) * 6.0
+    ids = np.concatenate([rng.integers(0, 2, sum(sizes)), rng.choice([0, 1, 1, 2 if padding else 0], 300)])
+    first = rng.permutation(len(ids))
+    frames = []
+    for f in range(n_frames):
+        sites = grid[rng.permutation(len(grid))[: len(sizes)]]
+        sites[0] = 0.0  # the corner cluster
+        parts = []
+        for site, m in zip(sites, sizes):
+            v = rng.normal(size=(m, 3))
+            v *= 0.45 * rng.uniform(0, 1, (m, 1)) ** (1 / 3) / np.linalg.norm(v, axis=1, keepdims=True)
+            parts.append(site + v)
+        lone = grid[rng.permutation(len(grid))[:300]] + 3.0  # >= 4.7 A from every cluster atom
+        pos = np.concatenate(parts + [lone])[first if f == 0 else rng.permutation(len(ids))]
+        frames.append(pos % 48.0 if wrap else pos)
+    ids = ids[first]
+    return np.asarray(frames, np.float32), ids.astype(np.int32)
+
+
+STAGED = (31, 32, 33, 63, 64, 65, 129)
+
+
+@pytest.mark.parametrize("with_idx", [False, True], ids=["lean", "idx"])
+@pytest.mark.parametrize("k_n", [1, 31, 33, 1000])
+@pytest.mark.parametrize("box", [(48.0, 48.0, 48.0), None], ids=["periodic", "open"])
+def test_sweep_staging_edges_match_plain(cuda, box, k_n, with_idx):
+    """Counts on both sides of a line and of a ring, K below, at and above
+    them (1, 31, 33 and 1000: row starts at every line offset), centers
+    saturated above K, two frames in one launch, 726 atoms (the 4-byte tile
+    copies): every output equal to the plain version bit for bit."""
+    pos, sid = _clusters(2, 31, wrap=box is not None)
+    pos, sid = torch.from_numpy(pos).to(cuda), torch.from_numpy(sid).to(cuda)
+    args = (pos, sid, box, 1.0, k_n, 2)
+    ours = adf_kernel.neighbor_extract_sweep(*args, with_idx=with_idx)
+    torch.cuda.synchronize()
+    plain = neighbor_extract_reference(*args, with_idx=with_idx)
+    assert set(STAGED) <= set(plain[5].unique().tolist())
+    for a, b in zip(ours, plain):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("centers", [(5, 300), (17, 726), (0, 1)])
+def test_sweep_stripe_off_the_block_matches_plain(cuda, centers):
+    """Stripes whose first center is not a multiple of the block's 16, with
+    idx, K = 33: equal to the plain version and to the full launch's rows."""
+    pos, sid = _clusters(2, 32, wrap=True)
+    pos, sid = torch.from_numpy(pos).to(cuda), torch.from_numpy(sid).to(cuda)
+    args = (pos, sid, (48.0, 48.0, 48.0), 1.0, 33, 2)
+    full = adf_kernel.neighbor_extract_sweep(*args, with_idx=True)
+    lo, hi = centers
+    ours = adf_kernel.neighbor_extract_sweep(*args, centers=centers, with_idx=True)
+    torch.cuda.synchronize()
+    plain = neighbor_extract_reference(*args, centers=centers, with_idx=True)
+    for a, b, c in zip(ours, plain, full):
+        assert torch.equal(a, b) and torch.equal(a, c[:, lo:hi])
+
+
+@pytest.mark.parametrize("k_n", [33, 1000])
+@pytest.mark.parametrize("sort", ["z", "brick"])
+def test_window_staging_across_the_seam_matches_plain(cuda, sort, k_n):
+    """The window mode on the cluster frames: the corner cluster puts arcs
+    across the end of the sorted order (the periodic seam); lists and
+    ``sid_sorted`` equal to the plain sorted extract bit for bit, and the
+    overflow flag set exactly where a window covers more chunks than the
+    sort's bound (these frames are far from uniform)."""
+    from lammps_analysis_tpu_torch.ops import sorting
+    from lammps_analysis_tpu_torch.ops.adf import sorted_neighbor_extract_reference
+
+    box = (48.0, 48.0, 48.0)
+    pos, sid = _clusters(2, 33, wrap=True, padding=False)  # padding sorted last ends the arcs
+    pos, sid = torch.from_numpy(pos).to(cuda), torch.from_numpy(sid).to(cuda)
+    n_chunks = -(-pos.shape[1] // sorting.CHUNK_ATOMS)
+    _, _, _, arcs, total = sorting.sort_frames(pos, sid, 2, box, 1.0, sort)
+    arcs = arcs.view(-1, 2)
+    assert bool(((arcs[:, 1] > 0) & (arcs[:, 0] + arcs[:, 1] > n_chunks)).any())
+    args = (pos, sid, box, 1.0, k_n, 2)
+    bound = sorting.window_bound(sort, pos.shape[1], box, 1.0)
+    *lists, sid_s, overflow = adf_kernel.sorted_neighbor_extract(*args, sort, bound)
+    torch.cuda.synchronize()
+    plain = sorted_neighbor_extract_reference(*args, sort)
+    assert set(STAGED) <= set(plain[5].unique().tolist())
+    assert all(torch.equal(a, b) for a, b in zip((*lists, sid_s), plain))
+    assert int(overflow) == int(total.max() > bound)
