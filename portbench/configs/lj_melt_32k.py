@@ -1,0 +1,16 @@
+"""Positions of ``lj_melt_32k`` from a seed: uniform at in.lj's density
+and walked from frame to frame, wrapped into the box, on the card."""
+
+from portbench import walk
+
+
+def generate(config: dict, seed: int, device: str):
+    """``(n_frames, n_atoms, 3)`` float32 on ``device``, one species (Ar)."""
+    return walk.wrapped_walk(
+        n_frames=config["n_frames"],
+        n_atoms=sum(config["species"].values()),
+        box=config["box_length"],
+        sigma=config["walk_sigma"],
+        seed=seed,
+        device=device,
+    )
