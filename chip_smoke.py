@@ -159,8 +159,8 @@ Phases, one line each (any failure raises and the exit code is not 0):
    ``exp.run``, each world held to the process alone on the same inputs
    (counts exactly, the ADF within its allowance, transport within rtol
    1e-5), with every rank's kernel launches (no plain call), cache hits, one
-   DB row per computation (rank 0 writes), the forced calls' walls and the
-   host time of their collectives: (a) a world of 1 on NCCL; (b) four ranks
+   DB row per computation (rank 0 writes), the forced calls' walls and
+   their collectives: (a) a world of 1 on NCCL; (b) four ranks
    sharing the card over gloo, then on a (2, 2) mesh the RDF calculator
    through K1's i-rows and the sharded ADF through K2's center stripes, on
    the binned route and once on the sweep; (c) one rank a card over NCCL
@@ -185,6 +185,7 @@ script exits non-zero before printing either.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import ctypes
 import importlib.util
@@ -1351,21 +1352,18 @@ def ingest(root, counts, n_frames, box, seed, pos=None):
 
 def main_path(card: str) -> tuple[int, dict]:
     from lammps_analysis_tpu_torch import config
-    from lammps_analysis_tpu_torch.ops import rdf_kernel
-    from lammps_analysis_tpu_torch.ops.rdf import rdf_histogram_reference
 
     config.device = "cuda"
     kw = dict(number_of_configurations=64, cutoff=BENCH["cutoff"],
               number_of_bins=BENCH["n_bins"], plot=False)
     with tempfile.TemporaryDirectory() as root:
         exp = ingest(root, BENCH["counts"], 100, BENCH["box"][0], seed=2024)
-        calculator = exp.run.RadialDistributionFunction
-        rdf_kernel.launches = 0
-        rdf_histogram_reference.calls = 0
+        zero_counters()
         t0 = time.perf_counter()
-        result = calculator(**kw)
+        result = exp.run.RadialDistributionFunction(**kw)
         seconds = time.perf_counter() - t0
-        launches, plain_calls = rdf_kernel.launches, rdf_histogram_reference.calls
+        counts = mesh_counters()
+        launches, plain_calls = counts["rdf_histogram"], counts["plain"]
         if launches < 1 or plain_calls != 0:
             raise RuntimeError(
                 f"main path: {launches} kernel launches and {plain_calls} plain "
@@ -1380,15 +1378,13 @@ def main_path(card: str) -> tuple[int, dict]:
             if abs(median - 1.0) > 0.02:
                 raise RuntimeError(f"main path: {key} g(r) median {median} is not an ideal gas's 1")
             phase("3 main", f"{key}: g(r) finite, median over 5-19.9 A {median:.5f}")
-        pairs_per_s = calculator.last_throughput_pairs_per_s
         phase(
             "3 main",
             f"RDF 64 frames x 10240 atoms x 500 bins: {seconds:.3f} s wall, "
-            f"{launches} kernel launches, 0 plain calls, {pairs_per_s / 1e9:.3f} "
-            f"Gpairs/s inside the calculator, on {card}",
+            f"{launches} kernel launches, 0 plain calls, on {card}",
         )
         again = exp.run.RadialDistributionFunction(**kw)
-        if rdf_kernel.launches != launches or again.data_dict != result.data_dict:
+        if mesh_counters()["rdf_histogram"] != launches or again.data_dict != result.data_dict:
             raise RuntimeError("main path: the second run was not a cache hit")
         phase("3 main", "second run: cache hit, no new launch")
         def forced():
@@ -1620,7 +1616,6 @@ def post_lattice() -> None:
     jitter, 8 frames) -> the post-processing finds the first shells: 6 Cl
     around Na and 12 like ions; the card's results equal the CPU's."""
     from lammps_analysis_tpu_torch import config
-    from lammps_analysis_tpu_torch.ops import rdf_kernel
 
     cells, a, n_frames = 6, 5.64, 8
     pos, n = rock_salt(cells, a, n_frames, 0.1, seed=2032)
@@ -1630,9 +1625,9 @@ def post_lattice() -> None:
         config.device = device
         with tempfile.TemporaryDirectory() as root:
             exp = ingest(root, [n, n], n_frames, cells * a, seed=0, pos=pos)
-            before = rdf_kernel.launches
+            zero_counters()
             rdf = exp.run.RadialDistributionFunction(**kw)
-            outputs[device] = rdf.data_dict, post_process(exp, rdf), rdf_kernel.launches - before
+            outputs[device] = rdf.data_dict, post_process(exp, rdf), mesh_counters()["rdf_histogram"]
     config.device = "cuda"
     if outputs["cuda"][2] < 1 or outputs["cpu"][2] != 0:
         raise RuntimeError(f"post lattice: K1 launches card {outputs['cuda'][2]}, CPU {outputs['cpu'][2]}")
@@ -1654,11 +1649,6 @@ def post_lattice() -> None:
 def adf_main_path(card: str) -> tuple[dict, dict]:
     from lammps_analysis_tpu_torch import config
     from lammps_analysis_tpu_torch.memory.planner import BatchPlanner
-    from lammps_analysis_tpu_torch.ops import adf_kernel
-    from lammps_analysis_tpu_torch.ops.adf import (
-        adf_pairs_histogram_reference,
-        neighbor_extract_reference,
-    )
 
     n_bins = ADF["n_bins"]
     d_theta = ADF_RANGE / n_bins
@@ -1670,20 +1660,13 @@ def adf_main_path(card: str) -> tuple[dict, dict]:
     with tempfile.TemporaryDirectory() as root:
         exp = ingest(root, ADF["counts"], 20, ADF["box"][0], seed=2025)
         calculator = exp.run.AngularDistributionFunction
-        counters = {
-            "adf_neighbor_cells": adf_kernel.neighbor_extract_binned,
-            "adf_neighbor_extract": adf_kernel.neighbor_extract_sweep,
-            "adf_pairs_histogram": adf_kernel.adf_pairs_histogram,
-        }
-        for fn in counters.values():
-            fn.launches = 0
-        neighbor_extract_reference.calls = 0
-        adf_pairs_histogram_reference.calls = 0
+        zero_counters()
         t0 = time.perf_counter()
         result = calculator(**kw)
         seconds = time.perf_counter() - t0
-        launches = {name: fn.launches for name, fn in counters.items()}
-        plain_calls = neighbor_extract_reference.calls + adf_pairs_histogram_reference.calls
+        counts = mesh_counters()
+        launches = {name: counts[name] for name in ADF_KERNELS}
+        plain_calls = counts["plain"]
         expected = {"adf_neighbor_cells": 16, "adf_neighbor_extract": 0, "adf_pairs_histogram": 16}
         if launches != expected or plain_calls != 0:
             raise RuntimeError(
@@ -1691,7 +1674,7 @@ def adf_main_path(card: str) -> tuple[dict, dict]:
                 f"calls; expected {expected} and none: the binned extract and the "
                 "angle kernel alone"
             )
-        n_batches = calculator.last_n_batches
+        n_batches = counts["adf batches"] // counts["adf passes"]
         for key in keys:
             adf = np.asarray(result[key]["adf"])
             if adf.shape != (n_bins,) or not np.all(np.isfinite(adf)):
@@ -1702,10 +1685,9 @@ def adf_main_path(card: str) -> tuple[dict, dict]:
         phase(
             "3 adf",
             f"ADF 16 frames x 10240 atoms x 500 bins, cutoff 3.6 A: {seconds:.3f} s wall, "
-            f"{n_batches} batches, K={calculator.last_k_n}, {calculator.last_n_passes} "
+            f"{n_batches} batches, K={calculator.last_k_n}, {counts['adf passes']} "
             f"pass(es), launches {launches}, 0 plain calls, "
-            f"{calculator.last_throughput_pairs_per_s / 1e9:.3f} G atom pairs/s inside "
-            f"the calculator, every triple finite and integrating to {n_batches}, on {card}",
+            f"every triple finite and integrating to {n_batches}, on {card}",
         )
 
         ideal = exp.run.AngularDistributionFunction(norm_power=0, **kw)
@@ -1718,10 +1700,9 @@ def adf_main_path(card: str) -> tuple[dict, dict]:
             phase("3 adf", f"{key}, norm_power=0: median adf / (n_batches sin(theta)/2) "
                   f"over 0.5-2.6 rad {ratio:.5f}")
 
-        before = [fn.launches for fn in counters.values()]
+        before = mesh_counters()
         again = exp.run.AngularDistributionFunction(**kw)
-        after = [fn.launches for fn in counters.values()]
-        if after != before or again.data_dict != result.data_dict:
+        if mesh_counters() != before or again.data_dict != result.data_dict:
             raise RuntimeError("adf main path: the second run was not a cache hit")
         phase("3 adf", "second run: cache hit, no new launch")
         def forced():
@@ -1825,7 +1806,7 @@ def adf_wide_path(card: str) -> dict:
                 or counts["plain"] or counts["adf_neighbor_extract sorted z"]:
             raise RuntimeError(f"adf-wide: launches {counts}; the brick-sorted route and the angle "
                                "kernel, no plain call")
-        n_batches = calculator.last_n_batches
+        n_batches = counts["adf batches"] // counts["adf passes"]
         for key in keys:
             adf = np.asarray(result[key]["adf"])
             area = float(adf.sum() * d_theta)
@@ -1834,7 +1815,7 @@ def adf_wide_path(card: str) -> dict:
         launches = dict(counts)
         phase("3 adf-wide", f"ADF 2 frames x {sum(c['counts'])} atoms, box {c['box'][0]} A, cutoff "
               f"{c['cutoff']} A, {n_bins} bins: {seconds:.3f} s wall (first call), {n_batches} batch(es), "
-              f"{calculator.last_n_passes} passes to K={calculator.last_k_n}; launches "
+              f"{counts['adf passes']} passes to K={calculator.last_k_n}; launches "
               f"{ {k: v for k, v in counts.items() if v} }, 0 plain calls; every triple finite and "
               f"integrating to {n_batches}, on {card}")
         adf_kernel.extract_route = sweep_for_sorted
@@ -1888,7 +1869,7 @@ def adf_wide_path(card: str) -> dict:
           f"{counts['adf_pairs_histogram']}), largest count {int(max_count)}, {z_s * 1e3:.1f} ms first call; "
           "within the ADF allowance of the sweep's")
     for key, n in counts.items():
-        launches[key] += n
+        launches[key] = launches.get(key, 0) + n
 
     zero_counters()
     dc = DROPLET
@@ -1915,7 +1896,7 @@ def adf_wide_path(card: str) -> dict:
           f"(binned) equal to the plain idx; launches { {k: v for k, v in counts.items() if v} }")
     for key, n in counts.items():
         if key != "plain":
-            launches[key] += n
+            launches[key] = launches.get(key, 0) + n
     return launches
 
 
@@ -2089,8 +2070,7 @@ def transport_main_path(card: str) -> dict:
     from lammps_analysis_tpu_torch import config
     from lammps_analysis_tpu_torch.file_io import LAMMPSDumpFile
     from lammps_analysis_tpu_torch.memory.planner import BatchPlanner
-    from lammps_analysis_tpu_torch.ops import correlation, msd, rdf_kernel
-    from lammps_analysis_tpu_torch.ops.rdf import rdf_histogram_reference
+    from lammps_analysis_tpu_torch.ops import correlation, msd
     from lammps_analysis_tpu_torch.transformations import CoordinateUnwrapper
 
     c = TRANSPORT
@@ -2118,13 +2098,13 @@ def transport_main_path(card: str) -> dict:
               f"{c['n_frames']} frames, Na {n_na} + Cl {n_cl}, box {exp.box_array}, sample rate "
               f"{exp.sample_rate}")
 
-        rdf_kernel.launches = 0
-        rdf_histogram_reference.calls = 0
+        zero_counters()
         rdf = exp.run.RadialDistributionFunction(
             number_of_configurations=64, cutoff=BENCH["cutoff"], number_of_bins=BENCH["n_bins"],
             plot=False,
         )
-        launches, plain = rdf_kernel.launches, rdf_histogram_reference.calls
+        counts = mesh_counters()
+        launches, plain = counts["rdf_histogram"], counts["plain"]
         x_angstrom = np.asarray(rdf["Na_Cl"]["x"]) * 10.0
         median = float(np.median(np.asarray(rdf["Na_Cl"]["y"])[(x_angstrom >= 5.0) & (x_angstrom <= 19.9)]))
         if launches < 1 or plain != 0 or abs(median - 1.0) > 0.02:
@@ -2961,12 +2941,7 @@ def water_main_path(card: str) -> dict:
     from lammps_analysis_tpu_torch import config
     from lammps_analysis_tpu_torch.calculators import radial_distribution_function
     from lammps_analysis_tpu_torch.graph import molecular_graph
-    from lammps_analysis_tpu_torch.ops import adf_kernel, msd, rdf_kernel
-    from lammps_analysis_tpu_torch.ops.adf import (
-        adf_pairs_histogram_reference,
-        neighbor_extract_reference,
-    )
-    from lammps_analysis_tpu_torch.ops.rdf import rdf_histogram_reference
+    from lammps_analysis_tpu_torch.ops import msd
     from lammps_analysis_tpu_torch.parallel import sharded_ops
     from lammps_analysis_tpu_torch.transformations import CoordinateUnwrapper, map_molecules
 
@@ -3026,11 +3001,11 @@ def water_main_path(card: str) -> dict:
               "allowed)")
 
         kw_r = dict(molecules=True, number_of_configurations=64, plot=False)
-        rdf_kernel.launches = 0
-        rdf_histogram_reference.calls = 0
+        zero_counters()
         with Capture(radial_distribution_function, "sharded_rdf_histogram") as rdf_calls:
             rdf = exp.run.RadialDistributionFunction(**kw_r)
-        rdf_launches, plain = rdf_kernel.launches, rdf_histogram_reference.calls
+        counts = mesh_counters()
+        rdf_launches, plain = counts["rdf_histogram"], counts["plain"]
         g = np.asarray(rdf["water_water"]["y"])
         if rdf_launches < 1 or plain != 0 or sorted(rdf.data_dict) != ["water_water"] \
                 or not np.all(np.isfinite(g)) or g.sum() <= 0:
@@ -3042,20 +3017,13 @@ def water_main_path(card: str) -> dict:
               f"launches {rdf_launches}, plain calls 0, g(r) finite, median over "
               f"{x[-1] / 2:.1f}-{x[-1]:.1f} A {median:.4f}")
 
-        counters = {
-            "adf_neighbor_cells": adf_kernel.neighbor_extract_binned,
-            "adf_neighbor_extract": adf_kernel.neighbor_extract_sweep,
-            "adf_pairs_histogram": adf_kernel.adf_pairs_histogram,
-        }
-        for fn in counters.values():
-            fn.launches = 0
-        neighbor_extract_reference.calls = 0
-        adf_pairs_histogram_reference.calls = 0
+        zero_counters()
         kw_a = dict(number_of_configurations=16, start=0, cutoff=1.2, number_of_bins=500, plot=False)
         with Capture(sharded_ops.AdfBatchRunner, "feed", note=lambda r, _: r.plan.k_n) as feeds:
             adf = exp.run.AngularDistributionFunction(**kw_a)
-        adf_launches = {name: fn.launches for name, fn in counters.items()}
-        plain = neighbor_extract_reference.calls + adf_pairs_histogram_reference.calls
+        counts = mesh_counters()
+        adf_launches = {name: counts[name] for name in ADF_KERNELS}
+        plain = counts["plain"]
         peak = adf["O_H_H"]["max_peak"]
         if adf_launches["adf_neighbor_cells"] < 1 or adf_launches["adf_neighbor_extract"] != 0 \
                 or adf_launches["adf_pairs_histogram"] < 1 or plain != 0 or abs(peak - 109.47) > 1.0:
@@ -3068,13 +3036,12 @@ def water_main_path(card: str) -> dict:
         del rdf_calls, feeds
 
         results = (einstein.data_dict, rdf.data_dict, adf.data_dict)
-        before = [fn.launches for fn in counters.values()] + [rdf_kernel.launches]
+        before = mesh_counters()
         with Spy(msd, "windowed_msd_sum") as comb:
             again = (exp.run.EinsteinDiffusionCoefficients(**kw_e).data_dict,
                      exp.run.RadialDistributionFunction(**kw_r).data_dict,
                      exp.run.AngularDistributionFunction(**kw_a).data_dict)
-        after = [fn.launches for fn in counters.values()] + [rdf_kernel.launches]
-        if again != results or after != before or comb.calls:
+        if again != results or mesh_counters() != before or comb.calls:
             raise RuntimeError("water: the second calculator calls were not cache hits")
         phase("3 water", "second calls of Einstein, RDF and ADF: cache hits, no launch, no MSD slab")
 
@@ -3339,59 +3306,56 @@ MESH_CALLS = {
 MESH_RANKS = 4  # ranks that share the card in [5 mesh] (b)
 
 
-def mesh_counters() -> dict:
-    """This process's kernel launches and plain-version calls, by record."""
-    from lammps_analysis_tpu_torch.ops import adf_kernel, rdf_kernel
-    from lammps_analysis_tpu_torch.ops.adf import adf_pairs_histogram_reference, neighbor_extract_reference
-    from lammps_analysis_tpu_torch.ops.rdf import rdf_histogram_reference
+#: the kernels' records (``mesh_counters``) of the ADF's binned, sweep and angle launches
+ADF_KERNELS = ("adf_neighbor_cells", "adf_neighbor_extract", "adf_pairs_histogram")
+#: record -> the program's counter (``utils/profiling.py``)
+COUNTERS = {
+    "rdf_histogram": "k1.launches",
+    "adf_neighbor_cells": "k2.launches.binned",
+    "adf_neighbor_extract": "k2.launches.sweep",
+    "adf_pairs_histogram": "k3.launches",
+    "adf_neighbor_extract open": "k2.launches.open",
+    "adf_neighbor_extract idx": "k2.launches.idx.sweep",
+    "adf_neighbor_cells idx": "k2.launches.idx.binned",
+    "adf_neighbor_extract sorted z": "k2.launches.z",
+    "adf_neighbor_extract sorted brick": "k2.launches.brick",
+    "adf batches": "adf.batches",
+    "adf passes": "adf.passes",
+    "collectives": "collectives",
+}
+_COUNTED_FROM = collections.Counter()  # the program's counters at the last zero_counters()
 
-    return {
-        "rdf_histogram": rdf_kernel.launches,
-        "adf_neighbor_cells": adf_kernel.neighbor_extract_binned.launches,
-        "adf_neighbor_extract": adf_kernel.neighbor_extract_sweep.launches,
-        "adf_pairs_histogram": adf_kernel.adf_pairs_histogram.launches,
-        "adf_neighbor_extract open": adf_kernel.neighbor_extract_sweep.open_launches,
-        "adf_neighbor_extract idx": adf_kernel.neighbor_extract_sweep.idx_launches,
-        "adf_neighbor_cells idx": adf_kernel.neighbor_extract_binned.idx_launches,
-        "adf_neighbor_extract sorted z": adf_kernel.sorted_neighbor_extract.launches["z"],
-        "adf_neighbor_extract sorted brick": adf_kernel.sorted_neighbor_extract.launches["brick"],
-        "plain": rdf_histogram_reference.calls + neighbor_extract_reference.calls
-        + adf_pairs_histogram_reference.calls,
-    }
+
+def mesh_counters() -> dict:
+    """This process's kernel launches, plain-version calls, ADF batches and
+    passes and collectives since ``zero_counters()``, by record."""
+    from lammps_analysis_tpu_torch.utils.profiling import counters
+
+    delta = counters - _COUNTED_FROM
+    out = {record: delta[name] for record, name in COUNTERS.items()}
+    out["plain"] = delta["k1.plain"] + delta["k2.plain"] + delta["k3.plain"]
+    return out
 
 
 def zero_counters() -> None:
-    from lammps_analysis_tpu_torch.ops import adf_kernel, rdf_kernel
-    from lammps_analysis_tpu_torch.ops.adf import adf_pairs_histogram_reference, neighbor_extract_reference
-    from lammps_analysis_tpu_torch.ops.rdf import rdf_histogram_reference
+    from lammps_analysis_tpu_torch.utils.profiling import counters
 
-    rdf_kernel.launches = 0
-    for fn in (adf_kernel.neighbor_extract_binned, adf_kernel.neighbor_extract_sweep,
-               adf_kernel.adf_pairs_histogram):
-        fn.launches = 0
-    adf_kernel.neighbor_extract_sweep.open_launches = 0
-    adf_kernel.neighbor_extract_sweep.idx_launches = 0
-    adf_kernel.neighbor_extract_binned.idx_launches = 0
-    adf_kernel.sorted_neighbor_extract.launches = {"z": 0, "brick": 0}
-    for fn in (rdf_histogram_reference, neighbor_extract_reference, adf_pairs_histogram_reference):
-        fn.calls = 0
+    _COUNTED_FROM.clear()
+    _COUNTED_FROM.update(counters)
 
 
 def mesh_run(fn) -> dict:
     """``fn()`` with this process's counters set to 0 just before and read
     just after: ``result``, ``wall`` (seconds, device synchronised),
-    ``collectives`` and their host ``seconds``, and the ``counts``."""
-    from lammps_analysis_tpu_torch.parallel import sharded_ops
-
+    ``collectives`` and the ``counts``."""
     zero_counters()
-    n0, s0 = sharded_ops.collectives, sharded_ops.collective_seconds
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     result = fn()
     torch.cuda.synchronize()
-    return dict(result=result, wall=time.perf_counter() - t0, counts=mesh_counters(),
-                collectives=sharded_ops.collectives - n0,
-                seconds=sharded_ops.collective_seconds - s0)
+    counts = mesh_counters()
+    return dict(result=result, wall=time.perf_counter() - t0, counts=counts,
+                collectives=counts["collectives"])
 
 
 def mesh_world(root: str, two_d: bool) -> dict:
@@ -3488,8 +3452,8 @@ def mesh_report(label: str, worlds: list, ref: dict, expect_rows: dict) -> dict:
                                                                    "adf_pairs_histogram")}
         phase("5 mesh", f"{label} {call}: equal to the process alone; forced call wall (median of 3) rank 0 "
               f"{forced[0]['wall'] * 1e3:.3f} ms, slowest rank {max(f['wall'] for f in forced) * 1e3:.3f} ms "
-              f"(process alone {alone * 1e3:.3f} ms); {forced[0]['collectives']} collectives on rank 0 in "
-              f"{forced[0]['seconds'] * 1e3:.3f} ms of host time; first call {first[0]['wall']:.3f} s; "
+              f"(process alone {alone * 1e3:.3f} ms); {forced[0]['collectives']} collectives on rank 0; "
+              f"first call {first[0]['wall']:.3f} s; "
               f"launches by rank {per_rank}, 0 plain calls; second call a cache hit on every rank")
     return launches
 
@@ -3580,7 +3544,7 @@ def mesh_two_d(label: str, worlds: list, ref: dict, adf_ref) -> dict:
           f"process alone (K1 launches by rank {[x['rdf 2d']['counts']['rdf_histogram'] for x in worlds]}, "
           f"forced call wall rank 0 {w['rdf 2d']['wall'] * 1e3:.3f} ms, slowest "
           f"{max(x['rdf 2d']['wall'] for x in worlds) * 1e3:.3f} ms, {w['rdf 2d']['collectives']} "
-          f"collectives in {w['rdf 2d']['seconds'] * 1e3:.3f} ms)")
+          f"collectives)")
     for route in ("binned", "sweep"):
         runs = [x[f"adf 2d {route}"] for x in worlds]
         phase("5 mesh", f"{label} 2-D ADF 16 x 10240 through K2's center stripes, {route} route: within "
@@ -3588,7 +3552,7 @@ def mesh_two_d(label: str, worlds: list, ref: dict, adf_ref) -> dict:
               f"{[r['counts'][RECORD_OF_ROUTE[route]] for r in runs]}, angle kernel "
               f"{[r['counts']['adf_pairs_histogram'] for r in runs]}, 0 plain calls; wall rank 0 "
               f"{runs[0]['wall'] * 1e3:.3f} ms, slowest {max(r['wall'] for r in runs) * 1e3:.3f} ms, "
-              f"{runs[0]['collectives']} collectives in {runs[0]['seconds'] * 1e3:.3f} ms")
+              f"{runs[0]['collectives']} collectives")
     return launches
 
 

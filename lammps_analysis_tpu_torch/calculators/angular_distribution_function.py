@@ -6,7 +6,8 @@ layout (``{"Na_Na_Na": {"max_peak", "angle", "adf"}}``, angles in degrees).
 Frame batches stream from the store through the prefetch pipeline to the
 neighbor-extract and angle-histogram kernels (``parallel/sharded_ops.py::
 AdfBatchRunner``); each batch is density-normalised on the device, the sum
-comes to the host once per run.
+comes to the host once per run (span ``adf.fetch``; the host's angles and
+peaks ``adf.normalise``, ``utils/profiling.py``).
 
 The batch split is part of the result: each batch's histogram is divided by
 its own total, so the ADF's scale is the number of batches. The split is
@@ -18,7 +19,6 @@ one (off a TPU its ``adf_frames_per_call`` is 1 and changes nothing).
 from __future__ import annotations
 
 import logging
-import time
 from typing import Any, Dict
 
 import numpy as np
@@ -30,6 +30,7 @@ from ..ops import adf as adf_ops
 from ..ops import rdf as rdf_ops
 from ..parallel.sharded_ops import AdfBatchRunner
 from ..pipeline.prefetch import prefetch_to_device
+from ..utils import profiling
 from ..utils.config import get_device
 from ..utils.progress import progress_iter
 from .base import TrajectoryCalculator
@@ -118,7 +119,6 @@ class AngularDistributionFunction(TrajectoryCalculator):
             normalize_per_batch=(hi - lo) / n_bins,
         )
 
-        t0 = time.perf_counter()
         n_passes = 0
         while True:
             n_passes += 1
@@ -136,31 +136,24 @@ class AngularDistributionFunction(TrajectoryCalculator):
             hist = runner.finalize()
             if hist is not None:
                 break
-        hist_total = hist.cpu().numpy().astype(np.float64)  # one fetch per run
-        elapsed = time.perf_counter() - t0
-        n_total = sum(n_per_species)
-        # atom pairs the neighbor extract tests (every center against every atom)
-        pairs_per_s = n_sampled * n_total * (n_total - 1) / max(elapsed, 1e-9)
+        with profiling.annotate("adf.fetch"):
+            hist_total = hist.cpu().numpy().astype(np.float64)  # one fetch per run
         log.info(
-            "ADF: %d frames x %d atoms in %d batches, %d pass(es) at K=%d, "
-            "%.3f s (%.2f million pairs/s) on %s",
-            n_sampled, n_total, n_batches, n_passes, runner.plan.k_n, elapsed,
-            pairs_per_s / 1e6, device,
+            "ADF: %d frames x %d atoms in %d batches, %d pass(es) at K=%d on %s",
+            n_sampled, sum(n_per_species), n_batches, n_passes, runner.plan.k_n, device,
         )
-        self.last_n_batches = n_batches
-        self.last_n_passes = n_passes
         self.last_k_n = runner.plan.k_n
-        self.last_throughput_pairs_per_s = pairs_per_s
 
-        # degrees with the reference's literal 180/3.14159 (:457-459)
-        angles_deg = np.linspace(lo * (180 / 3.14159), hi * (180 / 3.14159), n_bins)
-        results = {}
-        for t, (ia, ib, ic) in enumerate(triple_order):
-            key = f"{species[ia]}_{species[ib]}_{species[ic]}"
-            h = hist_total[t]
-            results[key] = {
-                "max_peak": float(angles_deg[int(np.argmax(h))]),
-                "angle": angles_deg.tolist(),
-                "adf": h.tolist(),
-            }
+        with profiling.annotate("adf.normalise"):
+            # degrees with the reference's literal 180/3.14159 (:457-459)
+            angles_deg = np.linspace(lo * (180 / 3.14159), hi * (180 / 3.14159), n_bins)
+            results = {}
+            for t, (ia, ib, ic) in enumerate(triple_order):
+                key = f"{species[ia]}_{species[ib]}_{species[ic]}"
+                h = hist_total[t]
+                results[key] = {
+                    "max_peak": float(angles_deg[int(np.argmax(h))]),
+                    "angle": angles_deg.tolist(),
+                    "adf": h.tolist(),
+                }
         return results

@@ -31,6 +31,10 @@ work over the default mesh); rank 0 alone decides the cache lookup, runs the
 dependency check's transformations and stores the result, and every rank
 returns the same Computation (``parallel/multihost.py::rank_zero``); rank 0
 alone writes the plots.
+
+Each experiment's part of a call runs in the span ``call``, which gives the
+spans under it their call id, the dependency check in ``deps`` and the batch
+and slab plans in ``calc.plan`` (``utils/profiling.py``).
 """
 
 from __future__ import annotations
@@ -51,6 +55,7 @@ from ..parallel.multihost import rank_zero
 from ..pipeline.prefetch import prefetch_to_device
 from ..transformations.coordinate_transforms import CoordinateUnwrapper
 from ..transformations.registry import transformation_for_property
+from ..utils import profiling
 from ..utils.config import config, get_device
 from ..utils.constants import DatasetKeys
 from ..utils.progress import progress_iter
@@ -130,26 +135,27 @@ class Calculator(abc.ABC):
         force = kwargs.pop("force", False)
         results: Dict[str, Computation] = {}
         for exp in self.experiments:
-            self.experiment = exp
-            self.args = self.prepare_args(**kwargs)
-            cache_args = dict(self.args)
-            if force:
-                exp.db.delete_computations(exp.name, self.name, cache_args)
-            # rank 0 decides hit or miss for every rank
-            comp = rank_zero(exp.db.find_computation)(
-                exp.name, self.name, cache_args, exp.version
-            )
-            if comp is None:
-                log.info("%s: computing on %s", self.name, exp.name)
-                data = self.run_calculator()
-                comp = exp.db.store_computation(
-                    exp.name, self.name, cache_args, exp.version, data
+            with profiling.annotate("call"):
+                self.experiment = exp
+                self.args = self.prepare_args(**kwargs)
+                cache_args = dict(self.args)
+                if force:
+                    exp.db.delete_computations(exp.name, self.name, cache_args)
+                # rank 0 decides hit or miss for every rank
+                comp = rank_zero(exp.db.find_computation)(
+                    exp.name, self.name, cache_args, exp.version
                 )
-            else:
-                log.info("%s: cache hit on %s", self.name, exp.name)
-            if plot:
-                rank_zero(self._plot_quietly)(comp)
-            results[exp.name] = comp
+                if comp is None:
+                    log.info("%s: computing on %s", self.name, exp.name)
+                    data = self.run_calculator()
+                    comp = exp.db.store_computation(
+                        exp.name, self.name, cache_args, exp.version, data
+                    )
+                else:
+                    log.info("%s: cache hit on %s", self.name, exp.name)
+                if plot:
+                    rank_zero(self._plot_quietly)(comp)
+                results[exp.name] = comp
         if self._return_dict or len(results) > 1:
             return results
         return next(iter(results.values()))
@@ -254,39 +260,40 @@ class TrajectoryCalculator(Calculator):
         loaded property (port of ``trajectory_calculator.py:117-194``): per
         species, or once for a system series (JAX package
         ``calculators/base.py:240-251``)."""
-        if self.loaded_property is None:
-            return
-        prop = self.loaded_property.name
-        exp = self.experiment
-        complete = self._complete
-
-        if self.system_property:
-            if complete(join_path(DatasetKeys.OBSERVABLES, prop)):
+        with profiling.annotate("deps"):
+            if self.loaded_property is None:
                 return
-            producer = transformation_for_property(prop)
-            if producer is None:
-                raise ValueError(
-                    f"{self.name}: required property {prop} not in store and "
-                    "no transformation produces it."
+            prop = self.loaded_property.name
+            exp = self.experiment
+            complete = self._complete
+
+            if self.system_property:
+                if complete(join_path(DatasetKeys.OBSERVABLES, prop)):
+                    return
+                producer = transformation_for_property(prop)
+                if producer is None:
+                    raise ValueError(
+                        f"{self.name}: required property {prop} not in store and "
+                        "no transformation produces it."
+                    )
+                producer.run_transformation(exp)
+                return
+            for sp in species or self.args.get("species", []):
+                if complete(join_path(sp, prop)):
+                    continue
+                if self._fusible_unwrap(sp):
+                    # config.fuse_streaming: the stream unwraps the wrapped
+                    # positions on the fly, nothing is materialised
+                    continue
+                producer = transformation_for_property(
+                    prop, experiment=exp, species=sp
                 )
-            producer.run_transformation(exp)
-            return
-        for sp in species or self.args.get("species", []):
-            if complete(join_path(sp, prop)):
-                continue
-            if self._fusible_unwrap(sp):
-                # config.fuse_streaming: the stream unwraps the wrapped
-                # positions on the fly, nothing is materialised
-                continue
-            producer = transformation_for_property(
-                prop, experiment=exp, species=sp
-            )
-            if producer is None:
-                raise ValueError(
-                    f"{self.name}: required property {prop} missing for "
-                    f"species {sp} and no transformation produces it."
-                )
-            producer.run_transformation(exp, [sp])
+                if producer is None:
+                    raise ValueError(
+                        f"{self.name}: required property {prop} missing for "
+                        f"species {sp} and no transformation produces it."
+                    )
+                producer.run_transformation(exp, [sp])
 
     def _complete(self, path: str) -> bool:
         """``path`` is stored and covers every configuration (appended data
@@ -382,17 +389,18 @@ class TrajectoryCalculator(Calculator):
 
     # --------------------------------------------------------------- planning
     def _plan_for(self, paths: List[str], data_range: Optional[int] = None) -> BatchPlan:
-        n_frames = self.experiment.number_of_configurations
-        bytes_per_frame = 0
-        for p in paths:
-            _, n_atoms, n_dims = self.experiment.store.get_data_size(p)
-            bytes_per_frame += n_atoms * n_dims * 8
-        return self.experiment.planner.plan(
-            n_frames=n_frames,
-            bytes_per_frame=bytes_per_frame,
-            scale_function=self.scale_function,
-            data_range=data_range,
-        )
+        with profiling.annotate("calc.plan"):
+            n_frames = self.experiment.number_of_configurations
+            bytes_per_frame = 0
+            for p in paths:
+                _, n_atoms, n_dims = self.experiment.store.get_data_size(p)
+                bytes_per_frame += n_atoms * n_dims * 8
+            return self.experiment.planner.plan(
+                n_frames=n_frames,
+                bytes_per_frame=bytes_per_frame,
+                scale_function=self.scale_function,
+                data_range=data_range,
+            )
 
     # --------------------------------------------------------------- streaming
     def _window_slab_plan(
@@ -644,23 +652,24 @@ class TrajectoryCalculator(Calculator):
         additive across groups; consumers needing per-window reconstruction
         pass ``with_info=True`` to receive ``(tensor, StreamSlabInfo)``.
         """
-        fused = (
-            prop_name == mp.unwrapped_positions.name and self._fusible_unwrap(species)
-        )
-        path = join_path(species, prop_name)
-        # the fused stream plans on the wrapped positions (same shape)
-        plan_path = join_path(species, mp.positions.name) if fused else path
-        atoms = self.resolve_atom_selection(
-            self.args.get("atom_selection"), species
-        )
-        store = self.experiment.store
-        _, n_full, _ = store.get_data_size(plan_path)
-        slabs, n_groups = self._window_stream_plan(
-            plan_path, data_range, correlation_time,
-            max_slab_bytes=self.MAX_SLAB_BYTES,
-            n_selected=self._count_selected(atoms, n_full),
-        )
-        groups = self._atom_groups(atoms, n_full, n_groups)
+        with profiling.annotate("calc.plan"):
+            fused = (
+                prop_name == mp.unwrapped_positions.name and self._fusible_unwrap(species)
+            )
+            path = join_path(species, prop_name)
+            # the fused stream plans on the wrapped positions (same shape)
+            plan_path = join_path(species, mp.positions.name) if fused else path
+            atoms = self.resolve_atom_selection(
+                self.args.get("atom_selection"), species
+            )
+            store = self.experiment.store
+            _, n_full, _ = store.get_data_size(plan_path)
+            slabs, n_groups = self._window_stream_plan(
+                plan_path, data_range, correlation_time,
+                max_slab_bytes=self.MAX_SLAB_BYTES,
+                n_selected=self._count_selected(atoms, n_full),
+            )
+            groups = self._atom_groups(atoms, n_full, n_groups)
         for gi, g_atoms in enumerate(groups):
             if fused:
                 inner = self._stream_unwrapped_fused(species, g_atoms, slabs)

@@ -12,7 +12,9 @@ the device slab by slab (the dependency check runs ``CoordinateUnwrapper``
 first when they are missing, or with ``config.fuse_streaming`` the stream
 unwraps the wrapped positions on the fly and stores nothing); the comb MSD
 runs there in float32 with float64 sums, its particles split over the
-default mesh (``sharded_windowed_msd``); the fit runs on the host.
+default mesh (``sharded_windowed_msd``); the fit runs on the host. Spans
+(``utils/profiling.py``): ``einstein.fetch`` a slab's sums to the host,
+``einstein.normalise`` the normalisation and the fit.
 """
 
 from __future__ import annotations
@@ -25,6 +27,7 @@ import numpy as np
 from ..database.properties import mdsuite_properties as mp
 from ..memory.planner import BatchPlanner
 from ..parallel.sharded_ops import sharded_windowed_msd
+from ..utils import profiling
 from ..utils.fitting import fit_einstein_curve
 from .base import TrajectoryCalculator
 
@@ -108,25 +111,27 @@ class EinsteinDiffusionCoefficients(TrajectoryCalculator):
                 s, _ = sharded_windowed_msd(
                     slab, self.tau_values, data_range, a["correlation_time"]
                 )
-                msd_sum += s.cpu().numpy()
-            msd = msd_sum / count
-            msd *= exp.units.length**2  # -> m^2 (:196)
-            time_si = times * exp.units.time
+                with profiling.annotate("einstein.fetch"):
+                    msd_sum += s.cpu().numpy()
+            with profiling.annotate("einstein.normalise"):
+                msd = msd_sum / count
+                msd *= exp.units.length**2  # -> m^2 (:196)
+                time_si = times * exp.units.time
 
-            popt, pcov, gradients, gradient_errors = fit_einstein_curve(
-                time_si, msd, fit_max_index=a["fit_range"]
-            )
-            error = np.sqrt(np.diag(pcov))[0]
-            results[sp] = {
-                "diffusion_coefficient": popt[0] / 6.0,
-                "uncertainty": error / 6.0,
-                "gradient": popt[0],
-                "intercept": popt[1],
-                "time": time_si.tolist(),
-                "msd": msd.tolist(),
-                "gradients": (np.asarray(gradients) / 6.0).tolist(),
-                "gradient_errors": (np.asarray(gradient_errors) / 6.0).tolist(),
-            }
+                popt, pcov, gradients, gradient_errors = fit_einstein_curve(
+                    time_si, msd, fit_max_index=a["fit_range"]
+                )
+                error = np.sqrt(np.diag(pcov))[0]
+                results[sp] = {
+                    "diffusion_coefficient": popt[0] / 6.0,
+                    "uncertainty": error / 6.0,
+                    "gradient": popt[0],
+                    "intercept": popt[1],
+                    "time": time_si.tolist(),
+                    "msd": msd.tolist(),
+                    "gradients": (np.asarray(gradients) / 6.0).tolist(),
+                    "gradient_errors": (np.asarray(gradient_errors) / 6.0).tolist(),
+                }
             log.info(
                 "%s D_%s = %.4e m^2/s", self.name, sp, popt[0] / 6.0
             )

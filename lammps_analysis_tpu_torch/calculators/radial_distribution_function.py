@@ -6,13 +6,14 @@ with the same arguments, frame sampling, cache key and result layout
 store through the prefetch pipeline to the pair-histogram kernel, their
 frames split over the default mesh (``sharded_rdf_histogram``); the integer
 counts accumulate on the device and come to the host once per run,
-where the prefactors turn them into g(r).
+where the prefactors turn them into g(r). Spans (``utils/profiling.py``):
+``rdf.dispatch`` a batch, ``rdf.fetch`` the one sync, ``rdf.normalise`` the
+host's g(r).
 """
 
 from __future__ import annotations
 
 import logging
-import time
 from typing import Any, Dict
 
 import numpy as np
@@ -23,6 +24,7 @@ from ..database.trajectory_store import join_path
 from ..ops import rdf as rdf_ops
 from ..parallel.sharded_ops import sharded_rdf_histogram
 from ..pipeline.prefetch import prefetch_to_device
+from ..utils import profiling
 from ..utils.config import get_device
 from ..utils.progress import progress_iter
 from .base import TrajectoryCalculator
@@ -115,7 +117,6 @@ class RadialDistributionFunction(TrajectoryCalculator):
         hist = torch.zeros(
             (len(pair_order), n_bins), dtype=torch.int64, device=device
         )
-        t0 = time.perf_counter()
         for batch_pos in progress_iter(
             prefetch_to_device(
                 lambda idx: self.load_concat_positions(
@@ -126,34 +127,30 @@ class RadialDistributionFunction(TrajectoryCalculator):
             ),
             desc=self.name, total=len(batches), unit="batch",
         ):
-            hist += sharded_rdf_histogram(
-                batch_pos, sid_dev, box, cutoff, n_bins, len(species)
-            )
-        counts = hist.cpu().numpy().astype(np.float64)  # one fetch per run
-        elapsed = time.perf_counter() - t0
-        n_total = sum(n_per_species)
-        pairs_per_s = n_sampled * n_total * (n_total - 1) / 2 / max(elapsed, 1e-9)
-        log.info(
-            "RDF: %d frames x %d atoms in %.3f s (%.2f million pairs/s) on %s",
-            n_sampled, n_total, elapsed, pairs_per_s / 1e6, device,
-        )
-        self.last_throughput_pairs_per_s = pairs_per_s
+            with profiling.annotate("rdf.dispatch"):
+                hist += sharded_rdf_histogram(
+                    batch_pos, sid_dev, box, cutoff, n_bins, len(species)
+                )
+        with profiling.annotate("rdf.fetch"):
+            counts = hist.cpu().numpy().astype(np.float64)  # one fetch per run
+        log.info("RDF: %d frames x %d atoms on %s", n_sampled, sum(n_per_species), device)
 
         # normalisation + output (host side)
-        bin_edges = np.linspace(0.0, cutoff, n_bins)
-        prefactors = rdf_ops.rdf_prefactors(
-            pair_order,
-            n_per_species,
-            exp.volume,
-            n_sampled,
-            bin_edges,
-            exp.box_array[0],
-        )
-        x_nm = (exp.units.length / 1e-9) * bin_edges  # Angstrom -> nm (:384)
+        with profiling.annotate("rdf.normalise"):
+            bin_edges = np.linspace(0.0, cutoff, n_bins)
+            prefactors = rdf_ops.rdf_prefactors(
+                pair_order,
+                n_per_species,
+                exp.volume,
+                n_sampled,
+                bin_edges,
+                exp.box_array[0],
+            )
+            x_nm = (exp.units.length / 1e-9) * bin_edges  # Angstrom -> nm (:384)
 
-        results = {}
-        for p, (ia, ib) in enumerate(pair_order):
-            key = f"{species[ia]}_{species[ib]}"
-            g = counts[p] * prefactors[p]
-            results[key] = {"x": x_nm.tolist(), "y": g.tolist()}
+            results = {}
+            for p, (ia, ib) in enumerate(pair_order):
+                key = f"{species[ia]}_{species[ib]}"
+                g = counts[p] * prefactors[p]
+                results[key] = {"x": x_nm.tolist(), "y": g.tolist()}
         return results

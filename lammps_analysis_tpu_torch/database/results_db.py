@@ -13,6 +13,10 @@ with a compact schema holding the same information:
 * ``computations`` / ``computation_results`` — full provenance cache: a
   calculator re-run with identical canonical args and experiment version is a
   lookup, not a recompute (reference: ``calculator_database.py:103-172``).
+
+Every public method of ``ResultsDatabase`` runs in a span ``db.<method>``;
+the counter ``db.connections`` counts the connections it opens, one a query
+(``utils/profiling.py``).
 """
 
 from __future__ import annotations
@@ -25,6 +29,8 @@ import time
 from typing import Any, Dict, List, Optional, Union
 
 import numpy as np
+
+from ..utils import profiling
 
 _SCHEMA = """
 CREATE TABLE IF NOT EXISTS experiments (
@@ -130,6 +136,7 @@ class Computation:
         return f"Computation({self.name}, subjects={list(self.data_dict)})"
 
 
+@profiling.method_spans("db")
 class ResultsDatabase:
     """One SQLite file per project, shared by all experiments."""
 
@@ -146,6 +153,7 @@ class ResultsDatabase:
             con.executescript(_SCHEMA)
 
     def _connect(self) -> sqlite3.Connection:
+        profiling.count("db.connections")
         con = sqlite3.connect(self.path)
         con.execute("PRAGMA journal_mode=WAL")
         return con

@@ -21,6 +21,9 @@ appended source). ``database/convert.py`` carries a JAX-package
 
 The dtype is always explicit: ``float32`` unless the caller says otherwise
 (the JAX package's default without x64).
+
+``load`` runs in the span ``store.load`` and counts the bytes and frames it
+returns in ``store.bytes`` and ``store.frames`` (``utils/profiling.py``).
 """
 
 from __future__ import annotations
@@ -33,6 +36,7 @@ from typing import Dict, List, Sequence, Union
 
 import numpy as np
 
+from ..utils import profiling
 from .contracts import TrajectoryChunkData, TrajectoryMetadata
 
 _CURSORS = "cursors.json"
@@ -176,16 +180,19 @@ class TrajectoryStore:
         dtype.
         """
         out: Dict[str, np.ndarray] = {}
-        for path in paths:
-            ds = np.lib.format.open_memmap(self._file(path), mode="r")
-            data = ds[slice(None) if frames is None else frames]
-            if atoms is not None and not (
-                isinstance(atoms, slice) and atoms == slice(None)
-            ):
-                data = data[:, atoms]
-            out[path] = np.array(
-                data, dtype=ds.dtype if dtype is None else dtype
-            )
+        with profiling.annotate("store.load"):
+            for path in paths:
+                ds = np.lib.format.open_memmap(self._file(path), mode="r")
+                data = ds[slice(None) if frames is None else frames]
+                if atoms is not None and not (
+                    isinstance(atoms, slice) and atoms == slice(None)
+                ):
+                    data = data[:, atoms]
+                out[path] = np.array(
+                    data, dtype=ds.dtype if dtype is None else dtype
+                )
+                profiling.count_shared("store.bytes", out[path].nbytes)
+                profiling.count_shared("store.frames", len(out[path]))
         return out
 
     # ------------------------------------------------------------- inspection

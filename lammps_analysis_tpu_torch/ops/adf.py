@@ -27,8 +27,9 @@ pair is enumerated once, keyed by ``(s_i, min, max)`` and weighted twice when
 
 The kernels and these versions run the same float32 operations in the same
 order (``-fmad=false`` on the CUDA side), so K2 agrees exactly and K3 up to
-the order of its float32 atomic sums and the last ulp of ``acos``. Each
-plain version counts its calls in ``.calls``.
+the order of its float32 atomic sums and the last ulp of ``acos``. The plain
+extract and angle histogram count their calls in ``utils/profiling.py``'s
+counters ``k2.plain`` and ``k3.plain``.
 """
 
 from __future__ import annotations
@@ -38,6 +39,7 @@ import itertools
 import numpy as np
 import torch
 
+from ..utils import profiling
 from . import sorting
 from .geometry import box_scalars, minimum_image, rounded_sqrt
 
@@ -136,7 +138,7 @@ def neighbor_extract_reference(
     still against every atom, in ``(F, c1 - c0, ...)`` outputs: row ``i -
     c0`` is row ``i`` of the full extract.
     """
-    neighbor_extract_reference.calls += 1
+    profiling.count("k2.plain")
     if box is None:
         wrap = None
     else:
@@ -184,9 +186,6 @@ def neighbor_extract_reference(
     if with_idx:
         return rx, ry, rz, d_out, sid_out, counts, idx_out
     return rx, ry, rz, d_out, sid_out, counts
-
-
-neighbor_extract_reference.calls = 0
 
 
 def sorted_neighbor_extract_reference(
@@ -238,7 +237,7 @@ def adf_pairs_histogram_reference(
     ``(1 / (d_j d_k)) ** norm_power``, doubled when ``b == c``. Returns
     ``(F, n_triples, n_bins)`` float32; sums run in float64.
     """
-    adf_pairs_histogram_reference.calls += 1
+    profiling.count("k3.plain")
     f, n, k = rx.shape
     device = rx.device
     n_triples = n_triples_for(n_species)
@@ -270,9 +269,6 @@ def adf_pairs_histogram_reference(
         w = torch.where(same, w + w, w)
         out.index_add_(0, (fi * n_triples + t) * n_bins + bins, w.to(torch.float64))
     return out.to(torch.float32).view(f, n_triples, n_bins)
-
-
-adf_pairs_histogram_reference.calls = 0
 
 
 def adf_histogram_reference(

@@ -39,11 +39,11 @@ on CUDA tensors or runs the plain torch version (``ops/adf.py``) on CPU
 tensors; a CUDA tensor never falls back. The kernel library builds from the
 checkout's sources at first use (``_build.py``).
 
-``neighbor_extract_binned.launches``, ``neighbor_extract_sweep.launches``,
-``sorted_neighbor_extract.launches`` (a dict by sort) and
-``adf_pairs_histogram.launches`` count the kernel launches made through each
-wrapper; ``neighbor_extract_sweep.open_launches`` and ``.idx_launches`` and
-``neighbor_extract_binned.idx_launches`` count those of them in a mode.
+Each wrapper runs in a span, ``k2.<route>`` (``binned``, ``sweep``, ``z``,
+``brick``) or ``k3``, and counts its kernel launches in
+``utils/profiling.py``'s counters: ``k2.launches.<route>`` and ``k3.launches``,
+and ``k2.launches.open`` and ``k2.launches.idx.<route>`` those of K2 in a
+mode; the lists' allocation is the span ``adf.empty_lists``.
 """
 
 from __future__ import annotations
@@ -57,6 +57,7 @@ import numpy as np
 import torch
 
 from .. import _build
+from ..utils import profiling
 from . import sorting
 from .adf import (
     adf_pairs_histogram_reference,
@@ -206,8 +207,9 @@ def _empty_lists(n_frames, n_rows, k_n, device, extra_floats=0, extra_ints=0):
     kernel writes whole lines."""
     size, rows = n_frames * n_rows * k_n, n_frames * n_rows
     stride = _lines(size)
-    floats = torch.empty(4 * stride + extra_floats, dtype=torch.float32, device=device)
-    ints = torch.empty(stride + _lines(rows) + extra_ints, dtype=torch.int32, device=device)
+    with profiling.annotate("adf.empty_lists"):
+        floats = torch.empty(4 * stride + extra_floats, dtype=torch.float32, device=device)
+        ints = torch.empty(stride + _lines(rows) + extra_ints, dtype=torch.int32, device=device)
     lists = [floats[f * stride : f * stride + size].view(n_frames, n_rows, k_n) for f in range(4)]
     sid_n = ints[:size].view(n_frames, n_rows, k_n)
     counts = ints[stride : stride + rows].view(n_frames, n_rows)
@@ -320,23 +322,25 @@ def neighbor_extract_sweep(
     open boundaries (``box=None``); the grid covers the stripe's centers
     only."""
     c0, c1 = _check_extract(positions, species_id, cutoff, k_n, n_species, centers)
-    if positions.device.type == "cpu":
-        return neighbor_extract_reference(
-            positions, species_id, box, cutoff, k_n, n_species, (c0, c1), with_idx
-        )
-    _check_device(positions.device)
-    outputs, _ = _launch_sweep(positions, species_id, box, cutoff, k_n, n_species, c0, c1,
-                               with_idx)
+    with profiling.annotate("k2.sweep"):
+        if positions.device.type == "cpu":
+            return neighbor_extract_reference(
+                positions, species_id, box, cutoff, k_n, n_species, (c0, c1), with_idx
+            )
+        _check_device(positions.device)
+        outputs, _ = _launch_sweep(positions, species_id, box, cutoff, k_n, n_species, c0, c1,
+                                   with_idx)
     if positions.shape[0] and c1 > c0:
-        neighbor_extract_sweep.launches += 1
-        neighbor_extract_sweep.open_launches += box is None
-        neighbor_extract_sweep.idx_launches += with_idx
+        _count_extract("sweep", box is None, with_idx)
     return outputs
 
 
-neighbor_extract_sweep.launches = 0
-neighbor_extract_sweep.open_launches = 0
-neighbor_extract_sweep.idx_launches = 0
+def _count_extract(route: str, open_box: bool, with_idx: bool) -> None:
+    profiling.count(f"k2.launches.{route}")
+    if open_box:
+        profiling.count("k2.launches.open")
+    if with_idx:
+        profiling.count(f"k2.launches.idx.{route}")
 
 
 def neighbor_extract_binned(
@@ -359,48 +363,46 @@ def neighbor_extract_binned(
     c0, c1 = _check_extract(positions, species_id, cutoff, k_n, n_species, centers)
     if box is None:
         raise ValueError("the binned extract needs a periodic box; box=None takes the sweep")
-    if positions.device.type == "cpu":
-        return neighbor_extract_reference(
-            positions, species_id, box, cutoff, k_n, n_species, (c0, c1), with_idx
+    with profiling.annotate("k2.binned"):
+        if positions.device.type == "cpu":
+            return neighbor_extract_reference(
+                positions, species_id, box, cutoff, k_n, n_species, (c0, c1), with_idx
+            )
+        device = positions.device
+        _check_device(device)
+        (bx, by, bz), (ibx, iby, ibz), threshold, n_cells = _extract_geometry(
+            _box_key(box), cutoff)
+        if min(n_cells) < 3 or k_n > BINNED_MAX_K:
+            raise ValueError(
+                f"the binned extract needs >= 3 cells per axis and k_n <= {BINNED_MAX_K}; "
+                f"got cells {n_cells} and k_n {k_n}: use the sweep"
+            )
+        n_frames, n_atoms, _ = positions.shape
+        lib = _library()
+        n_cells_all = n_cells[0] * n_cells[1] * n_cells[2]
+        per_frame = lib.adf_neighbor_cells_scratch_ints(n_atoms, n_cells_all)
+        size = n_frames * (c1 - c0) * k_n
+        idx_ints = size if with_idx else 0
+        # scratch: the cell-sorted atoms as float4, the per-frame ints (and idx first)
+        out, sorted_atoms, ints = _empty_lists(
+            n_frames, c1 - c0, k_n, device, 4 * n_frames * n_atoms, idx_ints + n_frames * per_frame
         )
-    device = positions.device
-    _check_device(device)
-    (bx, by, bz), (ibx, iby, ibz), threshold, n_cells = _extract_geometry(_box_key(box), cutoff)
-    if min(n_cells) < 3 or k_n > BINNED_MAX_K:
-        raise ValueError(
-            f"the binned extract needs >= 3 cells per axis and k_n <= {BINNED_MAX_K}; "
-            f"got cells {n_cells} and k_n {k_n}: use the sweep"
-        )
-    n_frames, n_atoms, _ = positions.shape
-    lib = _library()
-    per_frame = lib.adf_neighbor_cells_scratch_ints(n_atoms, n_cells[0] * n_cells[1] * n_cells[2])
-    size = n_frames * (c1 - c0) * k_n
-    idx_ints = size if with_idx else 0
-    # scratch: the cell-sorted atoms as float4, the per-frame ints (and idx first)
-    out, sorted_atoms, ints = _empty_lists(
-        n_frames, c1 - c0, k_n, device, 4 * n_frames * n_atoms, idx_ints + n_frames * per_frame
-    )
-    idx = ints[:size].view(n_frames, c1 - c0, k_n) if with_idx else None
-    outputs = (*out, idx) if with_idx else out
-    if n_frames == 0 or c0 == c1:
+        idx = ints[:size].view(n_frames, c1 - c0, k_n) if with_idx else None
+        outputs = (*out, idx) if with_idx else out
+        if n_frames == 0 or c0 == c1:
+            return outputs
+        with torch.cuda.device(device):
+            err = lib.adf_neighbor_cells_launch(
+                positions.data_ptr(), species_id.data_ptr(), *(t.data_ptr() for t in out),
+                idx.data_ptr() if with_idx else None,
+                ints[idx_ints:].data_ptr(), sorted_atoms.data_ptr(),
+                n_frames, n_atoms, n_species, k_n, c0, c1 - c0, *n_cells,
+                bx, by, bz, ibx, iby, ibz, threshold,
+                torch.cuda.current_stream(device).cuda_stream,
+            )
+        _raise_on(err, lib, "adf_neighbor_cells")
+        _count_extract("binned", False, with_idx)
         return outputs
-    with torch.cuda.device(device):
-        err = lib.adf_neighbor_cells_launch(
-            positions.data_ptr(), species_id.data_ptr(), *(t.data_ptr() for t in out),
-            idx.data_ptr() if with_idx else None,
-            ints[idx_ints:].data_ptr(), sorted_atoms.data_ptr(),
-            n_frames, n_atoms, n_species, k_n, c0, c1 - c0, *n_cells,
-            bx, by, bz, ibx, iby, ibz, threshold,
-            torch.cuda.current_stream(device).cuda_stream,
-        )
-    _raise_on(err, lib, "adf_neighbor_cells")
-    neighbor_extract_binned.launches += 1
-    neighbor_extract_binned.idx_launches += with_idx
-    return outputs
-
-
-neighbor_extract_binned.launches = 0
-neighbor_extract_binned.idx_launches = 0
 
 
 def sorted_neighbor_extract(
@@ -435,30 +437,28 @@ def sorted_neighbor_extract(
     _check_extract(positions, species_id, cutoff, k_n, n_species)
     if box is None:
         raise ValueError("the sorted route needs a periodic box; box=None takes the sweep")
-    n_frames, n_atoms, _ = positions.shape
-    limit = -(-n_atoms // sorting.CHUNK_ATOMS) if bound is None else int(bound)
-    if positions.device.type == "cpu":
-        *lists, sid_s = sorted_neighbor_extract_reference(
-            positions, species_id, box, cutoff, k_n, n_species, sort
+    with profiling.annotate(f"k2.{sort}"):
+        n_frames, n_atoms, _ = positions.shape
+        limit = -(-n_atoms // sorting.CHUNK_ATOMS) if bound is None else int(bound)
+        if positions.device.type == "cpu":
+            *lists, sid_s = sorted_neighbor_extract_reference(
+                positions, species_id, box, cutoff, k_n, n_species, sort
+            )
+            overflow = torch.zeros((), dtype=torch.int32)
+            if bound is not None and n_frames:
+                total = sorting.sort_frames(positions, species_id, n_species, box, cutoff, sort)[4]
+                overflow = (total.max() > limit).to(torch.int32)
+            return (*lists, sid_s, overflow)
+        _check_device(positions.device)
+        pos_s, sid_s, _, arcs, _ = sorting.sort_frames(
+            positions, species_id, n_species, box, cutoff, sort
         )
-        overflow = torch.zeros((), dtype=torch.int32)
-        if bound is not None and n_frames:
-            total = sorting.sort_frames(positions, species_id, n_species, box, cutoff, sort)[4]
-            overflow = (total.max() > limit).to(torch.int32)
-        return (*lists, sid_s, overflow)
-    _check_device(positions.device)
-    pos_s, sid_s, _, arcs, _ = sorting.sort_frames(
-        positions, species_id, n_species, box, cutoff, sort
-    )
-    sid_s = sid_s.to(torch.int32)
-    lists, overflow = _launch_sweep(pos_s, sid_s, box, cutoff, k_n, n_species, 0, n_atoms,
-                                    False, arcs.contiguous(), limit)
-    if n_frames and n_atoms:
-        sorted_neighbor_extract.launches[sort] += 1
-    return (*lists, sid_s, overflow.view(()))
-
-
-sorted_neighbor_extract.launches = {"z": 0, "brick": 0}
+        sid_s = sid_s.to(torch.int32)
+        lists, overflow = _launch_sweep(pos_s, sid_s, box, cutoff, k_n, n_species, 0, n_atoms,
+                                        False, arcs.contiguous(), limit)
+        if n_frames and n_atoms:
+            profiling.count(f"k2.launches.{sort}")
+        return (*lists, sid_s, overflow.view(()))
 
 
 def neighbor_indices(
@@ -608,33 +608,32 @@ def adf_pairs_histogram(
             f"need n_bins >= 1, n_species >= 1 and an integer norm_power >= 0; "
             f"got {n_bins}, {n_species}, {norm_power}"
         )
-    if device.type == "cpu":
-        return adf_pairs_histogram_reference(
-            rx, ry, rz, d, sid_n, counts, sid_c, n_bins, n_species, int(norm_power)
-        )
-    _check_device(device)
-    shape = (n_frames, n_triples_for(n_species), n_bins)
-    if n_frames == 0 or n_atoms == 0 or k_n < 2:
-        return torch.zeros(shape, dtype=torch.float32, device=device)
-    out = torch.empty(shape, dtype=torch.float32, device=device)
-    # float64 sums, then one uint32 "blocks done" counter a frame; cleared by the launch
-    scratch = torch.empty(out.numel() + (n_frames + 1) // 2, dtype=torch.float64, device=device)
-    lib = _library()
-    with torch.cuda.device(device):
-        route = pairs_histogram_route(n_species, n_bins, k_n, n_atoms, n_frames)
-        err = lib.adf_pairs_histogram_launch(
-            rx.data_ptr(), ry.data_ptr(), rz.data_ptr(), d.data_ptr(),
-            sid_n.data_ptr(), counts.data_ptr(), sid_c.data_ptr(), out.data_ptr(),
-            scratch.data_ptr(), n_frames, n_atoms, k_n, n_species, n_bins, int(norm_power),
-            bin_scale(n_bins), route.chunk_pairs, route.chunks_per_center,
-            route.blocks_per_frame, torch.cuda.current_stream(device).cuda_stream,
-        )
-    _raise_on(err, lib, "adf_pairs_histogram")
-    adf_pairs_histogram.launches += 1
-    return out
+    with profiling.annotate("k3"):
+        if device.type == "cpu":
+            return adf_pairs_histogram_reference(
+                rx, ry, rz, d, sid_n, counts, sid_c, n_bins, n_species, int(norm_power)
+            )
+        _check_device(device)
+        shape = (n_frames, n_triples_for(n_species), n_bins)
+        if n_frames == 0 or n_atoms == 0 or k_n < 2:
+            return torch.zeros(shape, dtype=torch.float32, device=device)
+        out = torch.empty(shape, dtype=torch.float32, device=device)
+        # float64 sums, then one uint32 "blocks done" counter a frame; cleared by the launch
+        scratch = torch.empty(out.numel() + (n_frames + 1) // 2, dtype=torch.float64, device=device)
+        lib = _library()
+        with torch.cuda.device(device):
+            route = pairs_histogram_route(n_species, n_bins, k_n, n_atoms, n_frames)
+            err = lib.adf_pairs_histogram_launch(
+                rx.data_ptr(), ry.data_ptr(), rz.data_ptr(), d.data_ptr(),
+                sid_n.data_ptr(), counts.data_ptr(), sid_c.data_ptr(), out.data_ptr(),
+                scratch.data_ptr(), n_frames, n_atoms, k_n, n_species, n_bins, int(norm_power),
+                bin_scale(n_bins), route.chunk_pairs, route.chunks_per_center,
+                route.blocks_per_frame, torch.cuda.current_stream(device).cuda_stream,
+            )
+        _raise_on(err, lib, "adf_pairs_histogram")
+        profiling.count("k3.launches")
+        return out
 
-
-adf_pairs_histogram.launches = 0
 
 #: flat pairs of one work unit of the angle kernel: a center with more pairs
 #: is cut into chunks of this many, which go to different warps and blocks

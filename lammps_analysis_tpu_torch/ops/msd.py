@@ -17,12 +17,15 @@ terms do not cancel. It takes ``ceil(window / stride)`` passes over the
 data; at ``stride = 1`` that is one short chain of launches per lag.
 
 Precision: float32 differences and squares (the store's dtype), summed in
-float64.
+float64. ``windowed_msd_sum`` runs in the span ``msd.comb``
+(``utils/profiling.py``).
 """
 
 from __future__ import annotations
 
 import torch
+
+from ..utils import profiling
 
 
 def _comb_sq_sums(x: torch.Tensor, window: int, stride: int) -> tuple[torch.Tensor, int]:
@@ -73,8 +76,9 @@ def windowed_msd_sum(
         displacements; the caller applies the reference's normalisation.
     n_windows : number of windows accumulated.
     """
-    full, k_windows = _comb_sq_sums(x, window, stride)
-    tau = torch.as_tensor(tau_values, dtype=torch.long, device=x.device)
-    if k_windows == 0:
-        return torch.zeros(tau.shape, dtype=torch.float64, device=x.device), 0
-    return full[tau], k_windows
+    with profiling.annotate("msd.comb"):
+        full, k_windows = _comb_sq_sums(x, window, stride)
+        tau = torch.as_tensor(tau_values, dtype=torch.long, device=x.device)
+        if k_windows == 0:
+            return torch.zeros(tau.shape, dtype=torch.float64, device=x.device), 0
+        return full[tau], k_windows

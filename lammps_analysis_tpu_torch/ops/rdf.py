@@ -17,6 +17,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..utils import profiling
 from .geometry import box_scalars, minimum_image, rounded_sqrt
 
 
@@ -84,7 +85,7 @@ def rdf_histogram_reference(
     b0)`` tensors (j starts at the block's first row ``b0``; every earlier j
     fails j > i).
     """
-    rdf_histogram_reference.calls += 1
+    profiling.count("k1.plain")
     (bx, by, bz), (ibx, iby, ibz), cut, inv_bin = rdf_scalars(box, cutoff, n_bins)
     _, n, _ = positions.shape
     r0, r1 = (0, n) if rows is None else rows
@@ -117,9 +118,6 @@ def rdf_histogram_reference(
         combined = pair_id * n_bins + bins  # (F, B, N - i0)
         hist += torch.bincount(combined[mask], minlength=n_pairs * n_bins)
     return hist.view(n_pairs, n_bins)
-
-
-rdf_histogram_reference.calls = 0
 
 
 def ideal_gas_correction(bin_edges: np.ndarray, box_l: float) -> np.ndarray:

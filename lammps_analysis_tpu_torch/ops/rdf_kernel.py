@@ -6,8 +6,9 @@ the plain torch version (``ops/rdf.py::rdf_histogram_reference``) on a CPU
 tensor; a CUDA tensor never falls back to the plain version. The kernel
 library builds from the checkout's sources at first use (``_build.py``).
 
-``launches`` counts kernel launches made through ``rdf_histogram``, so a run
-can show that it went through the kernel.
+Each call runs in the span ``k1``; the counter ``k1.launches``
+(``utils/profiling.py``) counts the kernel launches, so a run can show that
+it went through the kernel.
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ import functools
 import torch
 
 from .. import _build
+from ..utils import profiling
 from .geometry import squared_cutoff
 from .rdf import rdf_histogram_reference, rdf_scalars
 
@@ -26,9 +28,6 @@ TILE = 128
 
 #: where the kernel keeps its counts, by ``rdf_histogram_mode``'s code
 HISTOGRAM_MODES = ("warp", "block", "global")
-
-#: kernel launches made by ``rdf_histogram`` in this process
-launches = 0
 
 
 @functools.cache
@@ -115,39 +114,39 @@ def rdf_histogram(
     ``[0, N)`` add up to the full histogram exactly; the kernel launches only
     the stripe's i-tiles.
     """
-    global launches
-    _check(positions, species_id, box, cutoff, n_bins, n_species)
-    n_frames, n_atoms, _ = positions.shape
-    r0, r1 = (0, n_atoms) if rows is None else (int(rows[0]), int(rows[1]))
-    if not 0 <= r0 <= r1 <= n_atoms:
-        raise ValueError(f"rows must satisfy 0 <= i0 <= i1 <= {n_atoms}, got {rows}")
-    if positions.device.type == "cpu":
-        return rdf_histogram_reference(
-            positions, species_id, box, cutoff, n_bins, n_species, rows=(r0, r1)
-        )
-    if positions.device.type != "cuda":
-        raise ValueError(f"no kernel for device {positions.device}")
-    (bx, by, bz), (ibx, iby, ibz), cut, inv_bin = rdf_scalars(box, cutoff, n_bins)
-    threshold = squared_cutoff(cut)
-    n_pairs = n_species * (n_species + 1) // 2
-    out = torch.zeros((n_pairs, n_bins), dtype=torch.int64, device=positions.device)
-    if n_frames == 0 or r0 == r1:
+    with profiling.annotate("k1"):
+        _check(positions, species_id, box, cutoff, n_bins, n_species)
+        n_frames, n_atoms, _ = positions.shape
+        r0, r1 = (0, n_atoms) if rows is None else (int(rows[0]), int(rows[1]))
+        if not 0 <= r0 <= r1 <= n_atoms:
+            raise ValueError(f"rows must satisfy 0 <= i0 <= i1 <= {n_atoms}, got {rows}")
+        if positions.device.type == "cpu":
+            return rdf_histogram_reference(
+                positions, species_id, box, cutoff, n_bins, n_species, rows=(r0, r1)
+            )
+        if positions.device.type != "cuda":
+            raise ValueError(f"no kernel for device {positions.device}")
+        (bx, by, bz), (ibx, iby, ibz), cut, inv_bin = rdf_scalars(box, cutoff, n_bins)
+        threshold = squared_cutoff(cut)
+        n_pairs = n_species * (n_species + 1) // 2
+        out = torch.zeros((n_pairs, n_bins), dtype=torch.int64, device=positions.device)
+        if n_frames == 0 or r0 == r1:
+            return out
+        lib = _library()
+        with torch.cuda.device(positions.device):
+            err = lib.rdf_histogram_launch(
+                positions.data_ptr(), species_id.data_ptr(), out.data_ptr(),
+                n_frames, n_atoms, n_species, n_bins, r0, r1,
+                bx, by, bz, ibx, iby, ibz, threshold, inv_bin,
+                torch.cuda.current_stream(positions.device).cuda_stream,
+            )
+        if err != 0:
+            raise RuntimeError(
+                f"rdf_histogram kernel launch failed: CUDA error {err} "
+                f"({lib.rdf_cuda_error_string(err).decode()})"
+            )
+        profiling.count("k1.launches")
         return out
-    lib = _library()
-    with torch.cuda.device(positions.device):
-        err = lib.rdf_histogram_launch(
-            positions.data_ptr(), species_id.data_ptr(), out.data_ptr(),
-            n_frames, n_atoms, n_species, n_bins, r0, r1,
-            bx, by, bz, ibx, iby, ibz, threshold, inv_bin,
-            torch.cuda.current_stream(positions.device).cuda_stream,
-        )
-    if err != 0:
-        raise RuntimeError(
-            f"rdf_histogram kernel launch failed: CUDA error {err} "
-            f"({lib.rdf_cuda_error_string(err).decode()})"
-        )
-    launches += 1
-    return out
 
 
 def histogram_mode(n_species: int, n_bins: int) -> str:

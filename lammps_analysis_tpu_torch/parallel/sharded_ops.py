@@ -20,11 +20,14 @@ Gloo and CUDA tensors: in a world whose ranks share one card (backend gloo,
 ``multihost.initialize``), ``_all_reduce`` copies a CUDA tensor to the host
 for its collective and back. That is a staging copy, not a fallback: the
 kernels still run on the card.
+
+A collective runs in the span ``collective`` and counts in ``collectives``;
+the ADF runner's ``feed`` and ``finalize`` run in ``adf.feed`` and
+``adf.finalize`` and count in ``adf.batches`` and ``adf.passes``
+(``utils/profiling.py``).
 """
 
 from __future__ import annotations
-
-import time
 
 import numpy as np
 import torch
@@ -32,11 +35,8 @@ import torch.distributed as dist
 
 from ..ops import adf_kernel, correlation, msd, rdf_kernel, sorting
 from ..ops.adf import n_triples_for
+from ..utils import profiling
 from .mesh import Mesh, data_sharding, get_default_mesh
-
-#: collectives run by the sharded ops in this process, and their host seconds
-collectives = 0
-collective_seconds = 0.0
 
 
 def _resolve(mesh) -> Mesh:
@@ -53,16 +53,14 @@ def _resolve(mesh) -> Mesh:
 def _all_reduce(t: torch.Tensor, mesh: Mesh, op=dist.ReduceOp.SUM) -> torch.Tensor:
     """``t`` reduced over every rank of ``mesh`` (``t`` itself on a mesh of
     this process alone); a CUDA tensor under gloo is staged through the host."""
-    global collectives, collective_seconds
     if mesh.group is None:
         return t
-    t0 = time.perf_counter()
-    staged = t.is_cuda and dist.get_backend(mesh.group) == "gloo"
-    buf = t.cpu() if staged else t
-    dist.all_reduce(buf, op=op, group=mesh.group)
-    out = buf.to(t.device) if staged else buf
-    collectives += 1
-    collective_seconds += time.perf_counter() - t0
+    with profiling.annotate("collective"):
+        staged = t.is_cuda and dist.get_backend(mesh.group) == "gloo"
+        buf = t.cpu() if staged else t
+        dist.all_reduce(buf, op=op, group=mesh.group)
+        out = buf.to(t.device) if staged else buf
+    profiling.count("collectives")
     return out
 
 
@@ -262,19 +260,21 @@ class AdfBatchRunner:
     def feed(self, positions: torch.Tensor) -> None:
         """Dispatch one frame batch; the batches' remainder frames rotate
         over the ranks (one-frame batches go to each rank in turn)."""
-        lo, hi = data_sharding(self.mesh, positions.shape[0], turn=self._fed)
-        self._fed += 1
-        hist, max_count, overflow = _adf_frames(
-            positions[lo:hi], self.species_id, self.box, self.cutoff, self.plan.k_n,
-            self.n_species, self.n_bins, self.norm_power, use_sorted=self.plan.use_sorted,
-        )
-        hist = _all_reduce(hist, self.mesh)
-        if self.bin_width is not None:
-            total = hist.sum(1, keepdim=True)
-            hist = torch.where(total > 0, hist / (total * self.bin_width), 0.0)
-        self._hist = hist if self._hist is None else self._hist + hist
-        flags = torch.stack([max_count, overflow])
-        self._flags = flags if self._flags is None else torch.maximum(self._flags, flags)
+        with profiling.annotate("adf.feed"):
+            lo, hi = data_sharding(self.mesh, positions.shape[0], turn=self._fed)
+            self._fed += 1
+            hist, max_count, overflow = _adf_frames(
+                positions[lo:hi], self.species_id, self.box, self.cutoff, self.plan.k_n,
+                self.n_species, self.n_bins, self.norm_power, use_sorted=self.plan.use_sorted,
+            )
+            hist = _all_reduce(hist, self.mesh)
+            if self.bin_width is not None:
+                total = hist.sum(1, keepdim=True)
+                hist = torch.where(total > 0, hist / (total * self.bin_width), 0.0)
+            self._hist = hist if self._hist is None else self._hist + hist
+            flags = torch.stack([max_count, overflow])
+            self._flags = flags if self._flags is None else torch.maximum(self._flags, flags)
+        profiling.count("adf.batches")
 
     def finalize(self) -> torch.Tensor | None:
         """The accumulated ``(n_triples, n_bins)`` float32 histogram on the
@@ -282,7 +282,9 @@ class AdfBatchRunner:
         batch again)."""
         if self._hist is None:
             raise ValueError("finalize() before any feed()")
-        max_count, overflow = _all_reduce(self._flags, self.mesh, dist.ReduceOp.MAX).tolist()
+        with profiling.annotate("adf.finalize"):
+            max_count, overflow = _all_reduce(self._flags, self.mesh, dist.ReduceOp.MAX).tolist()
+        profiling.count("adf.passes")
         if self.plan.escalate(max_count, bool(overflow)):
             self._reset()
             return None

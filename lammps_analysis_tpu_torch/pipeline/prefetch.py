@@ -7,6 +7,12 @@ dict of arrays, for a slab of several species); the consumer's
 stream waits on an event recorded after the copy, so the copy of batch k+1
 overlaps the kernels of batch k. On the CPU device the worker only loads.
 ``PrefetchingLoader`` iterates frame slabs of store datasets through it.
+
+Spans (``utils/profiling.py``): on the worker ``prefetch.load``,
+``prefetch.pin`` and ``prefetch.copy``, children of the span that queued the
+item (the consumer's, then its ``prefetch.wait``); on the consumer
+``prefetch.wait`` from asking for an item (queueing the next load) until it
+is ready. The counter ``prefetch.items`` counts the items delivered.
 """
 
 from __future__ import annotations
@@ -19,6 +25,7 @@ from typing import Callable, Dict, Iterable, Iterator, Sequence, TypeVar
 import numpy as np
 import torch
 
+from ..utils import profiling
 from ..utils.config import get_device
 
 log = logging.getLogger(__name__)
@@ -47,8 +54,9 @@ def prefetch_to_device(
         torch.cuda.Stream(device=device) if device.type == "cuda" else None
     )
 
-    def load_and_copy(item):
-        loaded = load_fn(item)
+    def load_and_copy(item, submitter):
+        with profiling.annotate("prefetch.load", parent=submitter):
+            loaded = load_fn(item)
         as_dict = isinstance(loaded, dict)
         tensors = {
             k: torch.from_numpy(np.ascontiguousarray(a))
@@ -56,35 +64,42 @@ def prefetch_to_device(
         }
         done = None
         if copy_stream is not None:
-            pinned = {k: t.pin_memory() for k, t in tensors.items()}
-            with torch.cuda.stream(copy_stream):
+            with profiling.annotate("prefetch.pin", parent=submitter):
+                pinned = {k: t.pin_memory() for k, t in tensors.items()}
+            with (profiling.annotate("prefetch.copy", parent=submitter),
+                  torch.cuda.stream(copy_stream)):
                 tensors = {k: t.to(device, non_blocking=True) for k, t in pinned.items()}
                 done = torch.cuda.Event()
                 done.record(copy_stream)
         return (tensors if as_dict else tensors[None]), done
+
+    def submit(pool, item):
+        return pool.submit(load_and_copy, item, profiling.current())
 
     with concurrent.futures.ThreadPoolExecutor(max_workers=depth) as pool:
         queue = collections.deque()
         it = iter(items)
         for _ in range(depth):
             try:
-                queue.append(pool.submit(load_and_copy, next(it)))
+                queue.append(submit(pool, next(it)))
             except StopIteration:
                 break
         while queue:
-            fut = queue.popleft()
-            try:
-                queue.append(pool.submit(load_and_copy, next(it)))
-            except StopIteration:
-                pass
-            out, done = fut.result()
-            if done is not None:
-                consumer = torch.cuda.current_stream(device)
-                consumer.wait_event(done)
-                # the tensors were allocated on the copy stream: tell the
-                # caching allocator the consumer's stream uses them too
-                for tensor in out.values() if isinstance(out, dict) else (out,):
-                    tensor.record_stream(consumer)
+            with profiling.annotate("prefetch.wait"):
+                fut = queue.popleft()
+                try:
+                    queue.append(submit(pool, next(it)))
+                except StopIteration:
+                    pass
+                out, done = fut.result()
+                if done is not None:
+                    consumer = torch.cuda.current_stream(device)
+                    consumer.wait_event(done)
+                    # the tensors were allocated on the copy stream: tell the
+                    # caching allocator the consumer's stream uses them too
+                    for tensor in out.values() if isinstance(out, dict) else (out,):
+                        tensor.record_stream(consumer)
+            profiling.count("prefetch.items")
             yield out
 
 

@@ -22,8 +22,8 @@ import pytest
 import torch
 
 from lammps_analysis_tpu.utils.config import config as jax_config
-from lammps_analysis_tpu_torch.ops import adf as port_adf
 from lammps_analysis_tpu_torch.parallel import sharded_ops
+from lammps_analysis_tpu_torch.utils import profiling
 from lammps_analysis_tpu_torch.utils.config import config
 
 torch.set_num_threads(1)
@@ -112,11 +112,11 @@ def test_port_adf_matches_jax_calculator(tmp_path, case, budget, n_batches):
     port_exp = _experiment("lammps_analysis_tpu_torch", tmp_path / "torch", pos, n_na, n_cl, box, budget)
     jax_exp = _experiment("lammps_analysis_tpu", tmp_path / "jax", pos, n_na, n_cl, box, budget)
 
-    calls = port_adf.adf_pairs_histogram_reference.calls
-    calculator = port_exp.run.AngularDistributionFunction
-    ours = calculator(**kw)
-    assert port_adf.adf_pairs_histogram_reference.calls > calls  # it computed
-    assert calculator.last_n_batches == n_batches
+    before = profiling.counters.copy()
+    ours = port_exp.run.AngularDistributionFunction(**kw)
+    delta = profiling.counters - before
+    assert delta["k3.plain"] > 0  # it computed
+    assert (delta["adf.batches"], delta["adf.passes"]) == (n_batches, 1)
     ref = jax_exp.run.AngularDistributionFunction(**kw)
 
     assert set(ours.data_dict) == set(ref.data_dict) == set(KEYS)
@@ -149,21 +149,21 @@ def test_port_adf_cache_and_persistence(tmp_path):
     kw = dict(kw, plot=False)
     exp = _experiment("lammps_analysis_tpu_torch", tmp_path, pos, n_na, n_cl, box)
     first = exp.run.AngularDistributionFunction(**kw)
-    calls = port_adf.neighbor_extract_reference.calls
+    calls = profiling.counters["k2.plain"]
 
     again = exp.run.AngularDistributionFunction(**kw)  # cache hit
-    assert port_adf.neighbor_extract_reference.calls == calls
+    assert profiling.counters["k2.plain"] == calls
     assert again.data_dict == first.data_dict
 
     from lammps_analysis_tpu_torch import Project
 
     reopened = Project(name="adf", storage_path=tmp_path)
     by_exp = reopened.run.AngularDistributionFunction(**kw)  # project-bound: a dict
-    assert port_adf.neighbor_extract_reference.calls == calls
+    assert profiling.counters["k2.plain"] == calls
     assert by_exp["e"].data_dict == first.data_dict
 
     forced = exp.run.AngularDistributionFunction(force=True, **kw)
-    assert port_adf.neighbor_extract_reference.calls > calls
+    assert profiling.counters["k2.plain"] > calls
     assert forced.data_dict == first.data_dict
 
     other = exp.run.AngularDistributionFunction(**dict(kw, norm_power=2))  # new key
@@ -178,9 +178,10 @@ def test_port_adf_saturation_retry_gives_the_same_result(tmp_path, monkeypatch):
     kw = dict(kw, plot=False)
     budget = 10 * (4 * BYTES_PER_FRAME) ** 2  # three batches
     fits = _experiment("lammps_analysis_tpu_torch", tmp_path / "fits", pos, n_na, n_cl, box, budget)
-    calculator = fits.run.AngularDistributionFunction
-    expected = calculator(**kw)
-    assert calculator.last_n_passes == 1
+    before = profiling.counters.copy()
+    expected = fits.run.AngularDistributionFunction(**kw)
+    delta = profiling.counters - before
+    assert (delta["adf.batches"], delta["adf.passes"]) == (3, 1)
 
     class NarrowPlan(sharded_ops.AdfPlan):
         def __init__(self, *args, **kwargs):
@@ -190,7 +191,9 @@ def test_port_adf_saturation_retry_gives_the_same_result(tmp_path, monkeypatch):
     monkeypatch.setattr(sharded_ops, "AdfPlan", NarrowPlan)
     narrow = _experiment("lammps_analysis_tpu_torch", tmp_path / "narrow", pos, n_na, n_cl, box, budget)
     calculator = narrow.run.AngularDistributionFunction
+    before = profiling.counters.copy()
     result = calculator(**kw)
-    assert calculator.last_n_passes == 2 and calculator.last_k_n > 4
+    delta = profiling.counters - before
+    assert (delta["adf.batches"], delta["adf.passes"]) == (6, 2) and calculator.last_k_n > 4
     for key in KEYS:
         np.testing.assert_allclose(result[key]["adf"], expected[key]["adf"], rtol=1e-6, atol=1e-9)

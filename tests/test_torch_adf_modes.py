@@ -43,6 +43,7 @@ from lammps_analysis_tpu.ops.pallas_adf import (
 from lammps_analysis_tpu_torch.ops import adf as port_adf
 from lammps_analysis_tpu_torch.ops import adf_kernel, sorting
 from lammps_analysis_tpu_torch.parallel import sharded_ops
+from lammps_analysis_tpu_torch.utils import profiling
 
 torch.set_num_threads(1)
 
@@ -371,12 +372,12 @@ def test_runner_repeats_an_overflowed_batch_on_the_sweep(monkeypatch):
     runner.plan.k_n = 128
     assert adf_kernel.extract_route(box, 2.4, 128, 300) == "sorted"
     monkeypatch.setattr(sorting, "window_bound", lambda *args: 0)
-    calls = port_adf.neighbor_extract_reference.calls
+    calls = profiling.counters["k2.plain"]
     runner.feed(t[0])
     assert runner.finalize() is None and not runner.plan.use_sorted
     runner.feed(t[0])
     hist = runner.finalize()
-    assert port_adf.neighbor_extract_reference.calls == calls + 2
+    assert profiling.counters["k2.plain"] == calls + 2
     swept = sharded_ops.AdfBatchRunner(300, t[1], box, 2.4, 50, 2)
     swept.plan.k_n, swept.plan.use_sorted = 128, False
     swept.feed(t[0])

@@ -31,6 +31,7 @@ from lammps_analysis_tpu.ops.pallas_adf import (
 from lammps_analysis_tpu_torch.ops import adf as port_adf
 from lammps_analysis_tpu_torch.ops import adf_kernel
 from lammps_analysis_tpu_torch.parallel import make_data_mesh, sharded_ops
+from lammps_analysis_tpu_torch.utils import profiling
 
 torch.set_num_threads(1)
 
@@ -230,22 +231,15 @@ def test_triple_index_matches_table():
 def test_wrappers_run_the_plain_versions_on_cpu_tensors():
     pos, sid, box = _system(2, [30, 30], n_frames=2, box_l=5.0)
     pos_t, sid_t = torch.from_numpy(pos), torch.from_numpy(sid)
-    calls = (port_adf.neighbor_extract_reference.calls, port_adf.adf_pairs_histogram_reference.calls)
-    counters = (
-        adf_kernel.neighbor_extract_sweep,
-        adf_kernel.neighbor_extract_binned,
-        adf_kernel.adf_pairs_histogram,
-    )
-    launches = [fn.launches for fn in counters]
+    before = profiling.counters.copy()
     *lists, counts = adf_kernel.neighbor_extract(pos_t, sid_t, box, 2.0, 32, 2)
     h = adf_kernel.adf_pairs_histogram(*lists, counts, sid_t, 40, 2, 4)
     assert h.shape == (2, 4, 40) and h.dtype == torch.float32 and float(h.sum()) > 0
     for extract in (adf_kernel.neighbor_extract_sweep, adf_kernel.neighbor_extract_binned):
         assert all(torch.equal(a, b) for a, b in zip(extract(pos_t, sid_t, box, 2.0, 32, 2), (*lists, counts)))
-    assert (port_adf.neighbor_extract_reference.calls, port_adf.adf_pairs_histogram_reference.calls) == (
-        calls[0] + 3, calls[1] + 1,
-    )
-    assert [fn.launches for fn in counters] == launches
+    delta = profiling.counters - before
+    assert (delta["k2.plain"], delta["k3.plain"]) == (3, 1)
+    assert not any(name.endswith("launches") or ".launches." in name for name in delta)
 
 
 def test_wrappers_check_their_inputs():

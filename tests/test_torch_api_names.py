@@ -98,6 +98,8 @@ NOT_PORTED = {
     "utils/devices.py::bandwidth_bound_device": _DEVICES,
     "utils/devices.py::device_transfer_bandwidth_mbps": _DEVICES,
     "utils/devices.py::reset_measurement": _DEVICES,
+    **{f"utils/profiling.py::{name}": "host timers nothing reads; the port's spans time every layer"
+       for name in ("Stopwatch", "Stopwatch.section", "Stopwatch.report", "Stopwatch.throughput")},
     **{f"transformations/flux_transforms.py::{cls}.transform_batch_host": _HOST_ROUTE
        for cls in ("IonicCurrent", "TranslationalDipoleMoment", "ThermalFlux",
                    "IntegratedHeatCurrent", "KinaciIntegratedHeatCurrent", "MomentumFlux")},

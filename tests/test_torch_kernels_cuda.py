@@ -39,6 +39,7 @@ from lammps_analysis_tpu_torch.ops.adf import (
     neighbor_extract_reference,
 )
 from lammps_analysis_tpu_torch.ops.rdf import build_species_layout, rdf_histogram_reference
+from lammps_analysis_tpu_torch.utils.profiling import counters
 
 torch.set_num_threads(1)
 
@@ -76,10 +77,10 @@ def test_kernel_matches_plain_bin_for_bin(cuda, counts, n_frames, box, cutoff, n
     pos, sid = _case(counts, n_frames, box, seed=len(counts), device=cuda)
     args = (pos, sid, box, cutoff, n_bins, len(counts))
     assert rdf_kernel.histogram_mode(len(counts), n_bins) == mode
-    launches = rdf_kernel.launches
+    launches = counters["k1.launches"]
     h_kernel = rdf_kernel.rdf_histogram(*args)
     torch.cuda.synchronize()
-    assert rdf_kernel.launches == launches + 1
+    assert counters["k1.launches"] == launches + 1
     h_plain = rdf_histogram_reference(*args)
     assert h_kernel.dtype == torch.int64 and h_kernel.shape == h_plain.shape
     assert int(h_kernel.sum()) > 0
@@ -121,19 +122,18 @@ def test_neighbor_extract_matches_plain_exactly(cuda, counts, n_frames, box, cut
     sid[1:3] = len(counts)  # out of range: padding
     plain = neighbor_extract_reference(*args)
     assert int(plain[5].sum()) > 0
-    launches = adf_kernel.neighbor_extract_sweep.launches
+    launches = counters["k2.launches.sweep"]
     ours = adf_kernel.neighbor_extract_sweep(*args)
     torch.cuda.synchronize()
-    assert adf_kernel.neighbor_extract_sweep.launches == launches + 1
+    assert counters["k2.launches.sweep"] == launches + 1
     for a, b in zip(ours, plain):
         assert a.dtype == b.dtype and a.shape == b.shape
         assert torch.equal(a, b)
     route = adf_kernel.extract_route(box, cutoff, k_n, pos.shape[1])
-    wrapper = getattr(adf_kernel, f"neighbor_extract_{route}")
-    launches = wrapper.launches
+    launches = counters[f"k2.launches.{route}"]
     ours = adf_kernel.neighbor_extract(*args)
     torch.cuda.synchronize()
-    assert wrapper.launches == launches + 1
+    assert counters[f"k2.launches.{route}"] == launches + 1
     _assert_lists_equal_where_unsaturated(ours, plain, k_n)
 
 
@@ -169,10 +169,10 @@ def test_binned_extract_matches_plain(cuda, counts, n_frames, box, cutoff, k_n, 
         pos[:, ::3] += torch.tensor([1.0, -2.0, 2.0], device=cuda) * edges
         pos[:, 1::5] -= edges
     args = (pos, sid, box, cutoff, k_n, len(counts))
-    launches = adf_kernel.neighbor_extract_binned.launches
+    launches = counters["k2.launches.binned"]
     ours = adf_kernel.neighbor_extract_binned(*args)
     torch.cuda.synchronize()
-    assert adf_kernel.neighbor_extract_binned.launches == launches + 1
+    assert counters["k2.launches.binned"] == launches + 1
     plain = neighbor_extract_reference(*args)
     _assert_lists_equal_where_unsaturated(ours, plain, k_n)
     assert int(plain[5].sum()) > 0
@@ -198,10 +198,10 @@ def test_pairs_histogram_matches_plain(cuda, counts, n_bins, p, hist):
     s = len(counts)
     route = adf_kernel.pairs_histogram_route(s, n_bins, 96, pos.shape[1], 2)
     assert route.histogram == hist and route.chunks_per_center >= 5  # 4560 pairs at K = 96
-    launches = adf_kernel.adf_pairs_histogram.launches
+    launches = counters["k3.launches"]
     ours = adf_kernel.adf_pairs_histogram(*lists, n_in, sid, n_bins, s, p)
     torch.cuda.synchronize()
-    assert adf_kernel.adf_pairs_histogram.launches == launches + 1
+    assert counters["k3.launches"] == launches + 1
     _assert_adf_close(ours, adf_pairs_histogram_reference(*lists, n_in, sid, n_bins, s, p))
 
 
@@ -558,10 +558,10 @@ def test_rdf_row_range_matches_plain_and_adds_up(cuda, counts, box, cutoff, n_bi
     args = (pos, sid, box, cutoff, n_bins, len(counts))
     total = torch.zeros_like(rdf_histogram_reference(*args))
     for lo, hi in zip(edges[:-1], edges[1:]):
-        launches = rdf_kernel.launches
+        launches = counters["k1.launches"]
         stripe = rdf_kernel.rdf_histogram(*args, rows=(lo, hi))
         torch.cuda.synchronize()
-        assert rdf_kernel.launches == launches + (hi > lo)
+        assert counters["k1.launches"] == launches + (hi > lo)
         assert torch.equal(stripe, rdf_histogram_reference(*args, rows=(lo, hi)))
         total += stripe
     assert torch.equal(total, rdf_kernel.rdf_histogram(*args))
@@ -577,10 +577,10 @@ def test_center_stripe_matches_plain_and_the_full_launch(cuda, route, parts):
     assert int(full[5].max()) <= k_n
     edges = np.linspace(0, pos.shape[1], parts + 1).astype(int)
     for lo, hi in zip(edges[:-1], edges[1:]):
-        launches = extract.launches
+        launches = counters[f"k2.launches.{route}"]
         stripe = extract(*args, centers=(int(lo), int(hi)))
         torch.cuda.synchronize()
-        assert extract.launches == launches + 1
+        assert counters[f"k2.launches.{route}"] == launches + 1
         plain = neighbor_extract_reference(*args, centers=(int(lo), int(hi)))
         for a, b, c in zip(stripe, plain, full):
             assert torch.equal(a, b) and torch.equal(a, c[:, lo:hi])
@@ -640,10 +640,10 @@ def test_idx_output_matches_plain(cuda, route):
     sid[4:6] = 2
     args = (pos, sid, (26.0, 26.0, 26.0), 3.6, 48, 2)
     wrapper = getattr(adf_kernel, f"neighbor_extract_{route}")
-    launches = wrapper.idx_launches
+    launches = counters[f"k2.launches.idx.{route}"]
     ours = wrapper(*args, with_idx=True)
     torch.cuda.synchronize()
-    assert wrapper.idx_launches == launches + 1
+    assert counters[f"k2.launches.idx.{route}"] == launches + 1
     plain = neighbor_extract_reference(*args, with_idx=True)
     for a, b in zip(ours, plain):
         assert a.dtype == b.dtype and torch.equal(a, b)
@@ -654,10 +654,10 @@ def test_open_boundaries_match_plain(cuda):
     """``box=None`` on the sweep (a droplet in no box), with idx."""
     pos, sid = _case([800, 700], 2, (18.0, 18.0, 18.0), seed=22, device=cuda)
     args = (pos, sid, None, 3.6, 64, 2)
-    launches = adf_kernel.neighbor_extract_sweep.open_launches
+    launches = counters["k2.launches.open"]
     ours = adf_kernel.neighbor_extract(*args, with_idx=True)
     torch.cuda.synchronize()
-    assert adf_kernel.neighbor_extract_sweep.open_launches == launches + 1
+    assert counters["k2.launches.open"] == launches + 1
     plain = neighbor_extract_reference(*args, with_idx=True)
     assert all(torch.equal(a, b) for a, b in zip(ours, plain))
     hist, max_count = adf_kernel.adf_histogram(pos, sid, None, 3.6, 100, 2, k_n=64)
@@ -679,10 +679,10 @@ def test_sorted_route_matches_plain_and_the_sweep(cuda, sort):
     pos, sid = _case([3000, 3000], 2, box, seed=23, device=cuda)
     args = (pos, sid, box, 4.0, 96, 2)
     bound = sorting.window_bound(sort, pos.shape[1], box, 4.0)
-    launches = adf_kernel.sorted_neighbor_extract.launches[sort]
+    launches = counters[f"k2.launches.{sort}"]
     *lists, sid_s, overflow = adf_kernel.sorted_neighbor_extract(*args, sort, bound)
     torch.cuda.synchronize()
-    assert adf_kernel.sorted_neighbor_extract.launches[sort] == launches + 1
+    assert counters[f"k2.launches.{sort}"] == launches + 1
     plain = sorted_neighbor_extract_reference(*args, sort)
     assert all(torch.equal(a, b) for a, b in zip((*lists, sid_s), plain))
     assert int(overflow) == 0

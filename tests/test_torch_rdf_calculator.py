@@ -15,6 +15,7 @@ import pytest
 import torch
 
 from lammps_analysis_tpu_torch.ops import rdf as torch_rdf
+from lammps_analysis_tpu_torch.utils import profiling
 from lammps_analysis_tpu_torch.utils.config import config
 
 torch.set_num_threads(1)
@@ -95,9 +96,9 @@ def test_port_rdf_matches_jax_calculator(tmp_path, case):
     jax_exp = _project("lammps_analysis_tpu", tmp_path / "jax", pos, n_na, n_cl, box).experiments["e"]
     port_exp = _project("lammps_analysis_tpu_torch", tmp_path / "torch", pos, n_na, n_cl, box).experiments["e"]
 
-    calls = torch_rdf.rdf_histogram_reference.calls
+    calls = profiling.counters["k1.plain"]
     ours = port_exp.run.RadialDistributionFunction(**kw)
-    assert torch_rdf.rdf_histogram_reference.calls > calls  # it computed
+    assert profiling.counters["k1.plain"] > calls  # it computed
     ref = jax_exp.run.RadialDistributionFunction(**kw)
 
     assert set(ours.data_dict) == set(ref.data_dict) == {"Na_Na", "Na_Cl", "Cl_Cl"}
@@ -118,21 +119,21 @@ def test_port_rdf_cache_and_persistence(tmp_path):
     project = _project("lammps_analysis_tpu_torch", tmp_path, pos, n_na, n_cl, box)
     exp = project.experiments["e"]
     first = exp.run.RadialDistributionFunction(**kw)
-    calls = torch_rdf.rdf_histogram_reference.calls
+    calls = profiling.counters["k1.plain"]
 
     again = exp.run.RadialDistributionFunction(**kw)  # cache hit
-    assert torch_rdf.rdf_histogram_reference.calls == calls
+    assert profiling.counters["k1.plain"] == calls
     assert again.data_dict == first.data_dict
 
     from lammps_analysis_tpu_torch import Project
 
     reopened = Project(name="rdf", storage_path=tmp_path)
     by_exp = reopened.run.RadialDistributionFunction(**kw)  # project-bound: a dict
-    assert torch_rdf.rdf_histogram_reference.calls == calls
+    assert profiling.counters["k1.plain"] == calls
     assert by_exp["e"].data_dict == first.data_dict
 
     forced = exp.run.RadialDistributionFunction(force=True, **kw)
-    assert torch_rdf.rdf_histogram_reference.calls > calls
+    assert profiling.counters["k1.plain"] > calls
     assert forced.data_dict == first.data_dict
 
 

@@ -16,6 +16,7 @@ from lammps_analysis_tpu.ops import rdf as jax_rdf
 from lammps_analysis_tpu.ops.pallas_rdf import rdf_histogram_pallas
 from lammps_analysis_tpu_torch.ops import rdf as torch_rdf
 from lammps_analysis_tpu_torch.ops import rdf_kernel
+from lammps_analysis_tpu_torch.utils import profiling
 from lammps_analysis_tpu_torch.utils.config import config
 
 torch.set_num_threads(1)
@@ -130,12 +131,13 @@ def test_ideal_gas_and_prefactors_match_jax(box_l):
 def test_wrapper_runs_plain_version_on_cpu():
     counts, box = [40, 24], (6.0, 6.0, 6.0)
     pos, sid, _, _ = _layout(counts, 2, box, seed=3)
-    calls, launches = torch_rdf.rdf_histogram_reference.calls, rdf_kernel.launches
+    before = profiling.counters.copy()
     h = rdf_kernel.rdf_histogram(
         torch.from_numpy(pos), torch.from_numpy(sid), box, 2.9, 50, 2
     )
-    assert torch_rdf.rdf_histogram_reference.calls == calls + 1
-    assert rdf_kernel.launches == launches
+    delta = profiling.counters - before
+    assert delta["k1.plain"] == 1
+    assert delta["k1.launches"] == 0
     np.testing.assert_array_equal(h.numpy(), _pallas_hist(pos, sid, box, 2.9, 50, 2))
 
 

@@ -90,9 +90,6 @@ def op_world() -> dict:
 
 
 def _ops(two_d: bool) -> dict:
-    from lammps_analysis_tpu_torch.ops import adf_kernel, rdf_kernel
-    from lammps_analysis_tpu_torch.ops.adf import neighbor_extract_reference
-    from lammps_analysis_tpu_torch.ops.rdf import rdf_histogram_reference
     from lammps_analysis_tpu_torch.parallel import (
         AdfBatchRunner,
         make_2d_mesh,
@@ -105,6 +102,7 @@ def _ops(two_d: bool) -> dict:
         sharded_windowed_msd,
     )
     from lammps_analysis_tpu_torch.utils.config import get_device
+    from lammps_analysis_tpu_torch.utils.profiling import counters
 
     device = get_device()
 
@@ -131,8 +129,7 @@ def _ops(two_d: bool) -> dict:
     out["adf saturated passes, K"] = np.array([passes, runner.plan.k_n])
 
     def extracts():
-        return (neighbor_extract_reference.calls + adf_kernel.neighbor_extract_binned.launches
-                + adf_kernel.neighbor_extract_sweep.launches)
+        return counters["k2.plain"] + counters["k2.launches.binned"] + counters["k2.launches.sweep"]
 
     before = extracts()
     runner = AdfBatchRunner(pos.shape[1], sid, BOX, ADF["cutoff"], ADF["n_bins"], 2,
@@ -166,10 +163,9 @@ def _ops(two_d: bool) -> dict:
     else:
         out["adf stripes"] = sharded_adf_histogram(st_pos, st_sid, box, c["cutoff"],
                                                    c["n_bins"], 2).cpu().numpy()
-    out["plain calls"] = np.array([rdf_histogram_reference.calls, neighbor_extract_reference.calls])
-    out["launches"] = np.array([rdf_kernel.launches, adf_kernel.neighbor_extract_binned.launches,
-                                adf_kernel.neighbor_extract_sweep.launches,
-                                adf_kernel.adf_pairs_histogram.launches])
+    out["plain calls"] = np.array([counters["k1.plain"], counters["k2.plain"]])
+    out["launches"] = np.array([counters[name] for name in ("k1.launches", "k2.launches.binned",
+                                                            "k2.launches.sweep", "k3.launches")])
     return out
 
 
@@ -246,7 +242,7 @@ def calculator_world(root) -> dict:
     hits: no collective); the DB's rows; this rank's planner budget."""
     from lammps_analysis_tpu_torch.database.trajectory_store import TrajectoryStore
     from lammps_analysis_tpu_torch.memory.planner import BatchPlanner
-    from lammps_analysis_tpu_torch.parallel import sharded_ops
+    from lammps_analysis_tpu_torch.utils.profiling import counters
 
     writes = []
     open_for_write = TrajectoryStore._open_for_write
@@ -258,7 +254,7 @@ def calculator_world(root) -> dict:
     TrajectoryStore._open_for_write = counted
     try:
         first = calculators(root)
-        collectives = sharded_ops.collectives
+        collectives = counters["collectives"]
         again = calculators(root)
     finally:
         TrajectoryStore._open_for_write = open_for_write
@@ -266,7 +262,7 @@ def calculator_world(root) -> dict:
     rows += [c["name"] for c in walk_experiment(root).db.list_computations("w")]
     return dict(
         results=first, again_equal=again == first, collectives=collectives,
-        collectives_again=sharded_ops.collectives - collectives, writes=writes, rows=rows,
+        collectives_again=counters["collectives"] - collectives, writes=writes, rows=rows,
         budget=BatchPlanner().budget_bytes,
     )
 
