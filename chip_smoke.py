@@ -19,7 +19,9 @@ Phases, one line each (any failure raises and the exit code is not 0):
    after a warm-up call), the plain version's time (CUDA events around
    back-to-back calls) and the kernel's bound:
    * ``[2 kernel]`` the RDF pair histogram in each of its histogram modes,
-     equal bin for bin; the native CPU RDF kernel (one thread) on the
+     equal bin for bin, each with its layout's blocks and warps resident on
+     an SM, the main path (64 x 10240, 2 species x 500 bins) beside the LJ
+     shape (``LJ``: 32 x 32000, 1 species x 5709 bins); the native CPU RDF kernel (one thread) on the
      main-path launch's inputs, one call's wall, within its bin-edge
      differences of K1; its i-row range (the 2-D RDF's mode) on one rank's
      launch, 32 frames x 10240 atoms: stripes of 2 and 4 each equal to the
@@ -166,6 +168,9 @@ Phases, one line each (any failure raises and the exit code is not 0):
    the binned route and once on the sweep; (c) one rank a card over NCCL
    when the machine has two or more cards (else the line says why not).
 
+``--k1`` runs only ``[1 build]`` and K1 at the main path's and the LJ shape,
+each equal to the plain version, its device time in 3 rounds, for an A/B of
+two checkouts' K1 on one card.
 ``--walls`` runs only the forced-call medians (the transport path's too)
 and the angle kernel's one-frame launch, for an A/B of two checkouts on one
 card. ``--acf-batches`` times the windowed ACF over a 10^6-row system
@@ -234,6 +239,10 @@ PEAK_HBM_BYTES = 3.35e12
 
 # the bench workload of the JAX package: Na + Cl, box 40 A, cutoff 19.9 A
 BENCH = dict(counts=[5120, 5120], box=(40.0, 40.0, 40.0), cutoff=19.9, n_bins=500)
+# LAMMPS' bench/in.lj as the benchmark's lj_melt_32k holds it (argon, 32000
+# atoms, 114.38 A box) under the RDF's defaults (cutoff box/2 - 0.1, 0.01 A
+# bins): one species x 5709 bins, 125 blocks a frame
+LJ = dict(counts=[32000], box=(114.38, 114.38, 114.38), cutoff=57.09, n_bins=5709)
 # its ADF first-shell workload (bench.py:192-229): the same system, cutoff 3.6 A
 ADF = dict(counts=[5120, 5120], box=(40.0, 40.0, 40.0), cutoff=3.6, n_bins=500)
 ADF_RANGE = 3.15  # radians, ops/adf.py::ADF_BIN_RANGE
@@ -562,7 +571,7 @@ def kernel_vs_plain() -> dict:
     from lammps_analysis_tpu_torch.ops.rdf import rdf_histogram_reference
 
     cases = {
-        "a bench 4x10240": dict(BENCH, n_frames=4, mode="warp", reps=(20, 3)),
+        "a bench 4x10240": dict(BENCH, n_frames=4, mode="shared4", reps=(20, 3)),
         "b ragged 3 species N=1000": dict(
             counts=[400, 350, 245], box=(30.0, 33.0, 36.0), cutoff=9.9, n_bins=75,
             n_frames=3, mode="warp", reps=(20, 3),
@@ -574,7 +583,8 @@ def kernel_vs_plain() -> dict:
         "e block histogram 2 species x 5000 bins": dict(
             BENCH, n_bins=5000, n_frames=2, mode="block", reps=(10, 2),
         ),
-        "m main path 64x10240": dict(BENCH, n_frames=64, mode="warp", reps=(5, 2)),
+        "m main path 64x10240": dict(BENCH, n_frames=64, mode="shared4", reps=(5, 2)),
+        "l LJ 32x32000, 1 species x 5709 bins": dict(LJ, n_frames=32, mode="block", reps=(5, 1)),
     }
     device = torch.device("cuda")
     results = {}
@@ -582,7 +592,8 @@ def kernel_vs_plain() -> dict:
         pos, sid = make_case(c["counts"], c["n_frames"], c["box"], seed, device)
         n_species = len(c["counts"])
         args = (pos, sid, c["box"], c["cutoff"], c["n_bins"], n_species)
-        mode = rdf_kernel.histogram_mode(n_species, c["n_bins"])
+        layout = rdf_kernel.histogram_layout(n_species, c["n_bins"])
+        mode = layout.mode
         if mode != c["mode"]:
             raise RuntimeError(f"case {label}: expected the {c['mode']} histogram, got {mode}")
         h_kernel = rdf_kernel.rdf_histogram(*args)
@@ -606,7 +617,8 @@ def kernel_vs_plain() -> dict:
         bound_ms, bound_by = bound(flops, n_bytes)
         phase(
             "2 kernel",
-            f"{label}: {mode} histogram, total {total}, max |diff| {max_diff}, kernel "
+            f"{label}: {mode} histogram ({layout.blocks_per_sm} blocks, "
+            f"{8 * layout.blocks_per_sm} warps an SM), total {total}, max |diff| {max_diff}, kernel "
             f"{ms:.3f} ms ({pairs / ms / 1e6:.2f} Gpairs/s), plain {plain_ms:.3f} ms, "
             f"bound {bound_ms:.3f} ms ({bound_by}; {100 * bound_ms / ms:.1f} % of it)",
         )
@@ -3668,6 +3680,41 @@ def acf_batches() -> None:
         raise RuntimeError("acf batches: the batch size changed the result")
 
 
+def k1_ab(rounds: int = 3) -> None:
+    """``--k1``: K1 alone at the main path's shape (64 x 10240, 2 species x
+    500 bins) and at the LJ shape (32 x 32000, 1 species x 5709 bins), each
+    held once to the plain version bin for bin, then its device time
+    (``device_ms``, 5 launches) in ``rounds`` rounds, for an A/B of two
+    checkouts' K1 on one card (copy this script into the other checkout and
+    run it there too: a wrapper without ``histogram_layout`` names its
+    ``histogram_mode`` alone)."""
+    from lammps_analysis_tpu_torch.ops import rdf_kernel
+    from lammps_analysis_tpu_torch.ops.rdf import rdf_histogram_reference
+
+    device = torch.device("cuda")
+    shapes = {"main path 64x10240": dict(BENCH, n_frames=64), "LJ 32x32000": dict(LJ, n_frames=32)}
+    for seed, (label, c) in enumerate(shapes.items()):
+        pos, sid = make_case(c["counts"], c["n_frames"], c["box"], seed, device)
+        n_species = len(c["counts"])
+        args = (pos, sid, c["box"], c["cutoff"], c["n_bins"], n_species)
+        if hasattr(rdf_kernel, "histogram_layout"):
+            layout = rdf_kernel.histogram_layout(n_species, c["n_bins"])
+            where = f"{layout.mode}, {layout.blocks_per_sm} blocks an SM"
+        else:
+            where = rdf_kernel.histogram_mode(n_species, c["n_bins"])
+        if not torch.equal(rdf_kernel.rdf_histogram(*args), rdf_histogram_reference(*args)):
+            raise RuntimeError(f"K1 {label}: the kernel disagrees with the plain version")
+        n_valid = sum(c["counts"])
+        pairs = c["n_frames"] * n_valid * (n_valid - 1) / 2
+        times = [device_ms(lambda: rdf_kernel.rdf_histogram(*args), 5, "rdf_histogram")
+                 for _ in range(rounds)]
+        phase("2 k1", f"{label} ({where}), equal to the plain version: "
+              f"{', '.join(f'{ms:.4f}' for ms in times)} ms a launch, "
+              f"{pairs / min(times) / 1e6:.2f} Gpairs/s at the best")
+        del pos, sid
+        torch.cuda.empty_cache()
+
+
 def walls() -> None:
     """``--walls``: only the forced-call medians of the main paths (RDF, ADF,
     Einstein, Green-Kubo) and the angle kernel's one-frame launch, for an A/B of two checkouts on one card
@@ -3704,6 +3751,11 @@ def main() -> int:
     if sys.argv[1:] == ["--walls"]:
         environment()
         walls()
+        return 0
+    if sys.argv[1:] == ["--k1"]:
+        environment()
+        build()
+        k1_ab()
         return 0
     if sys.argv[1:] == ["--chunks"]:
         environment()

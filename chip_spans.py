@@ -13,7 +13,9 @@ From the root of a checkout, on a machine with a CUDA card. Runs the cell's
 * ``load_wait_ms_per_call``: the union of ``prefetch.wait`` spans, per call;
 * ``loaded_MiB_per_call``: the counter ``store.bytes`` per call, in MiB;
 * ``idle_unattributed_pct``: the share of the device's idle time in the
-  window in which the main thread's innermost span is ``call`` or none.
+  window in which the main thread's innermost span is ``call`` or none;
+* ``k1_layouts_per_call``: K1's launches per call by the layout they took
+  (the counters ``k1.layout.<layout>``: ``c8`` ... ``c1``, ``global``).
 
 The spans are mapped onto the profiler's clock by the ``call`` spans'
 ``record_function`` twins among the profiler's events. With spans on, each
@@ -66,8 +68,9 @@ def offset_us(log, events) -> float:
 
 
 def readings(trace, log, events, delta, n_calls: int, attempts: int = 1) -> dict:
-    """The five readings of the traced window's ``n_calls`` calls; ``delta``,
-    the counters' change, covers every attempt of the profiler."""
+    """The five readings of the traced window's ``n_calls`` calls and K1's
+    launches by layout; ``delta``, the counters' change, covers every
+    attempt of the profiler."""
     offset = offset_us(log, events)
     main = threading.main_thread().ident
     spans = [(s.start_ns / 1e3 + offset, s.end_ns / 1e3 + offset, s.name) for s in log
@@ -88,6 +91,10 @@ def readings(trace, log, events, delta, n_calls: int, attempts: int = 1) -> dict
         "loaded_MiB_per_call": delta["store.bytes"] / n_calls / attempts / 2**20,
         "idle_unattributed_pct":
             100.0 * (trace.window_us - covered_us) / idle_us if idle_us else None,
+        "k1_layouts_per_call": {
+            name.removeprefix("k1.layout."): n / n_calls / attempts
+            for name, n in sorted(delta.items()) if name.startswith("k1.layout.")
+        },
     }
 
 

@@ -8,13 +8,15 @@ library builds from the checkout's sources at first use (``_build.py``).
 
 Each call runs in the span ``k1``; the counter ``k1.launches``
 (``utils/profiling.py``) counts the kernel launches, so a run can show that
-it went through the kernel.
+it went through the kernel, and ``k1.layout.<layout>`` counts them by where
+the kernel kept its counts (``LAYOUTS``).
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 
@@ -26,8 +28,24 @@ from .rdf import rdf_histogram_reference, rdf_scalars
 #: i-atoms per tile; must equal ``kTile`` in ``csrc/rdf_histogram.cu``
 TILE = 128
 
-#: where the kernel keeps its counts, by ``rdf_histogram_mode``'s code
-HISTOGRAM_MODES = ("warp", "block", "global")
+#: where the kernel keeps its counts, by ``rdf_histogram_layout``'s code (the
+#: shared-memory copies a block; 0: atomics into device memory): the name
+#: ``histogram_mode`` gives and the counter's suffix
+LAYOUTS = {
+    8: ("warp", "c8"),
+    4: ("shared4", "c4"),
+    2: ("shared2", "c2"),
+    1: ("block", "c1"),
+    0: ("global", "global"),
+}
+
+
+class Layout(NamedTuple):
+    """The kernel's layout for a histogram on the current device."""
+
+    mode: str  #: ``LAYOUTS`` name
+    copies: int  #: shared-memory copies a block, 0 for global atomics
+    blocks_per_sm: int  #: blocks resident on an SM (8 warps each)
 
 
 @functools.cache
@@ -40,8 +58,8 @@ def _library() -> ctypes.CDLL:
         + [ctypes.c_void_p]
     )
     lib.rdf_histogram_launch.restype = ctypes.c_int
-    lib.rdf_histogram_mode.argtypes = [ctypes.c_int64]
-    lib.rdf_histogram_mode.restype = ctypes.c_int
+    lib.rdf_histogram_layout.argtypes = [ctypes.c_int64, ctypes.POINTER(ctypes.c_int)]
+    lib.rdf_histogram_layout.restype = ctypes.c_int
     lib.rdf_cuda_error_string.argtypes = [ctypes.c_int]
     lib.rdf_cuda_error_string.restype = ctypes.c_char_p
     return lib
@@ -134,6 +152,9 @@ def rdf_histogram(
             return out
         lib = _library()
         with torch.cuda.device(positions.device):
+            copies = lib.rdf_histogram_layout(n_pairs * n_bins, None)
+            if copies < 0:
+                raise RuntimeError("rdf_histogram: could not query the device's occupancy")
             err = lib.rdf_histogram_launch(
                 positions.data_ptr(), species_id.data_ptr(), out.data_ptr(),
                 n_frames, n_atoms, n_species, n_bins, r0, r1,
@@ -146,16 +167,27 @@ def rdf_histogram(
                 f"({lib.rdf_cuda_error_string(err).decode()})"
             )
         profiling.count("k1.launches")
+        profiling.count(f"k1.layout.{LAYOUTS[copies][1]}")
         return out
 
 
-def histogram_mode(n_species: int, n_bins: int) -> str:
-    """Where the kernel keeps this histogram (CUDA only): ``"warp"`` (one
-    shared-memory histogram per warp), ``"block"`` (one per block) or
-    ``"global"`` (atomics into device memory), by what fits a block's
-    shared-memory opt-in."""
+def histogram_layout(n_species: int, n_bins: int) -> Layout:
+    """Where the kernel keeps this histogram on the current CUDA device (CUDA
+    only): of the shared-memory copies a block (8, 4, 2, 1) that fit its
+    opt-in, the one that leaves the most warps resident on an SM, by the
+    runtime's occupancy calculator, ties to more copies; global atomics when
+    not even one copy fits."""
     n_total = n_species * (n_species + 1) // 2 * n_bins
-    code = _library().rdf_histogram_mode(n_total)
-    if code < 0:
-        raise RuntimeError("could not query the device's shared-memory limit")
-    return HISTOGRAM_MODES[code]
+    blocks = ctypes.c_int(0)
+    copies = _library().rdf_histogram_layout(n_total, ctypes.byref(blocks))
+    if copies < 0:
+        raise RuntimeError("could not query the device's occupancy")
+    return Layout(LAYOUTS[copies][0], copies, blocks.value)
+
+
+def histogram_mode(n_species: int, n_bins: int) -> str:
+    """The name of ``histogram_layout``: ``"warp"`` (one shared-memory
+    histogram per warp), ``"shared4"``, ``"shared2"`` (one per 2 or 4 warps),
+    ``"block"`` (one per block) or ``"global"`` (atomics into device
+    memory)."""
+    return histogram_layout(n_species, n_bins).mode

@@ -2,7 +2,8 @@
 
 Small versions of the kernel phase of ``chip_smoke.py``: the pair histogram
 (``csrc/rdf_histogram.cu`` through ``ops/rdf_kernel.py``, in each of its
-three histogram modes) must equal ``rdf_histogram_reference`` bin for bin;
+five histogram layouts, and at the LJ shape in one that leaves at least 32
+warps resident on an SM) must equal ``rdf_histogram_reference`` bin for bin;
 both routes of the neighbor extract (the sweep ``csrc/adf_neighbor_extract.cu``
 and the cell lists ``csrc/adf_neighbor_cells.cu``) must equal
 ``neighbor_extract_reference`` exactly (the binned route on every row whose
@@ -61,30 +62,55 @@ def _case(counts, n_frames, box, seed, device):
     return torch.from_numpy(pos).to(device), torch.from_numpy(sid).to(device)
 
 
+#: the ``k1.layout.*`` counter of each ``histogram_mode`` name
+LAYOUT_COUNTER = {name: f"k1.layout.{suffix}" for name, suffix in rdf_kernel.LAYOUTS.values()}
+
+
 @pytest.mark.parametrize(
     "counts, n_frames, box, cutoff, n_bins, mode",
     [
-        ([640, 640], 2, (20.0, 20.0, 20.0), 9.9, 500, "warp"),
+        ([640, 640], 2, (20.0, 20.0, 20.0), 9.9, 500, "shared4"),  # 1500 words: 4 copies
         ([400, 350, 245], 3, (30.0, 33.0, 36.0), 9.9, 75, "warp"),  # ragged, padded
         ([700, 600], 2, (20.0, 20.0, 20.0), 9.9, 5000, "block"),  # 15000 bins: one per block
         ([200, 200, 200, 200], 2, (16.0, 16.0, 16.0), 7.9, 6000, "global"),
         ([5], 1, (3.0, 3.0, 3.0), 1.45, 10, "warp"),  # fewer atoms than one tile
         ([1500, 1100], 1, (25.0, 25.0, 25.0), 12.4, 200, "warp"),  # odd tile count (21)
+        ([2600], 2, (26.0, 26.0, 26.0), 12.9, 3000, "shared2"),  # 3000 words: 2 copies
     ],
-    ids=["bench-like", "ragged", "block-histogram", "global-atomics", "tiny", "odd-tiles"],
+    ids=["bench-like", "ragged", "block-histogram", "global-atomics", "tiny", "odd-tiles",
+         "two-copies"],
 )
 def test_kernel_matches_plain_bin_for_bin(cuda, counts, n_frames, box, cutoff, n_bins, mode):
     pos, sid = _case(counts, n_frames, box, seed=len(counts), device=cuda)
     args = (pos, sid, box, cutoff, n_bins, len(counts))
     assert rdf_kernel.histogram_mode(len(counts), n_bins) == mode
-    launches = counters["k1.launches"]
+    launches, by_layout = counters["k1.launches"], counters[LAYOUT_COUNTER[mode]]
     h_kernel = rdf_kernel.rdf_histogram(*args)
     torch.cuda.synchronize()
     assert counters["k1.launches"] == launches + 1
+    assert counters[LAYOUT_COUNTER[mode]] == by_layout + 1
     h_plain = rdf_histogram_reference(*args)
     assert h_kernel.dtype == torch.int64 and h_kernel.shape == h_plain.shape
     assert int(h_kernel.sum()) > 0
     assert torch.equal(h_kernel, h_plain)
+
+
+def test_lj_shape_takes_a_layout_of_at_least_32_resident_warps(cuda):
+    """One species at MDSuite's defaults (0.01 A bins, cutoff box/2 - 0.1) at
+    LAMMPS' in.lj density: 5709 bins, whose per-warp copies would leave one
+    8-warp block an SM."""
+    box_l, n_atoms = 57.2, 4096
+    box = (box_l, box_l, box_l)
+    pos, sid = _case([n_atoms], 2, box, seed=18, device=cuda)
+    args = (pos, sid, box, box_l / 2 - 0.1, 5709, 1)
+    layout = rdf_kernel.histogram_layout(1, 5709)
+    assert layout.blocks_per_sm * 8 >= 32
+    before = counters.copy()
+    h_kernel = rdf_kernel.rdf_histogram(*args)
+    torch.cuda.synchronize()
+    moved = {name: n for name, n in (counters - before).items() if name.startswith("k1.")}
+    assert moved == {"k1.launches": 1, LAYOUT_COUNTER[layout.mode]: 1}
+    assert torch.equal(h_kernel, rdf_histogram_reference(*args))
 
 
 def test_kernel_treats_out_of_range_species_as_padding(cuda):
@@ -545,17 +571,19 @@ def test_fused_einstein_on_the_card_equals_the_materialised_run(cuda, tmp_path, 
 
 # ------------------------------------------------------ the multi-device layer
 @pytest.mark.parametrize(
-    "counts, box, cutoff, n_bins, edges",
+    "counts, box, cutoff, n_bins, edges, mode",
     [
-        ([640, 640], (20.0, 20.0, 20.0), 9.9, 500, (0, 640, 1280)),
-        ([400, 350, 245], (30.0, 33.0, 36.0), 9.9, 75, (0, 1, 130, 500, 500, 997, 1000)),
-        ([1500, 1100], (25.0, 25.0, 25.0), 12.4, 200, (0, 867, 1734, 2600)),
+        ([640, 640], (20.0, 20.0, 20.0), 9.9, 500, (0, 640, 1280), "shared4"),
+        ([400, 350, 245], (30.0, 33.0, 36.0), 9.9, 75, (0, 1, 130, 500, 500, 997, 1000), "warp"),
+        ([1500, 1100], (25.0, 25.0, 25.0), 12.4, 200, (0, 867, 1734, 2600), "warp"),
+        ([2600], (26.0, 26.0, 26.0), 12.9, 3000, (0, 700, 1900, 2600), "shared2"),
     ],
-    ids=["halves", "ragged-and-empty", "thirds"],
+    ids=["halves", "ragged-and-empty", "thirds", "two-copies"],
 )
-def test_rdf_row_range_matches_plain_and_adds_up(cuda, counts, box, cutoff, n_bins, edges):
+def test_rdf_row_range_matches_plain_and_adds_up(cuda, counts, box, cutoff, n_bins, edges, mode):
     pos, sid = _case(counts, 2, box, seed=7, device=cuda)
     args = (pos, sid, box, cutoff, n_bins, len(counts))
+    assert rdf_kernel.histogram_mode(len(counts), n_bins) == mode
     total = torch.zeros_like(rdf_histogram_reference(*args))
     for lo, hi in zip(edges[:-1], edges[1:]):
         launches = counters["k1.launches"]

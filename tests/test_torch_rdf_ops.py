@@ -141,6 +141,31 @@ def test_wrapper_runs_plain_version_on_cpu():
     np.testing.assert_array_equal(h.numpy(), _pallas_hist(pos, sid, box, 2.9, 50, 2))
 
 
+@pytest.mark.parametrize("rows", [None, (10, 40)], ids=["full", "stripe"])
+def test_cpu_route_counts_no_kernel_layout(rows):
+    """The CPU route is the plain version: it bumps ``k1.plain`` and none of
+    the kernel's ``k1.layout.*`` counters."""
+    counts, box = [40, 24], (6.0, 6.0, 6.0)
+    pos, sid, _, _ = _layout(counts, 2, box, seed=5)
+    before = profiling.counters.copy()
+    rdf_kernel.rdf_histogram(
+        torch.from_numpy(pos), torch.from_numpy(sid), box, 2.9, 50, 2, rows=rows
+    )
+    delta = profiling.counters - before
+    assert delta["k1.plain"] == 1
+    assert [name for name in delta if name.startswith("k1.")] == ["k1.plain"]
+
+
+def test_layout_names_keep_their_meaning():
+    """``histogram_mode``'s names: "warp" is a copy per warp, "block" one per
+    block, "global" atomics in device memory; every layout its own name and
+    counter."""
+    names = {copies: name for copies, (name, _) in rdf_kernel.LAYOUTS.items()}
+    assert names == {8: "warp", 4: "shared4", 2: "shared2", 1: "block", 0: "global"}
+    suffixes = [suffix for _, suffix in rdf_kernel.LAYOUTS.values()]
+    assert len(set(suffixes)) == len(suffixes)
+
+
 def test_out_of_range_species_counts_as_padding():
     """An id of n_species or more is skipped like -1 (the kernel would
     otherwise add outside its histogram)."""

@@ -57,6 +57,19 @@ def test_readings_of_a_hand_built_trace():
     assert r["db_connections_per_call"] == pytest.approx(44 / 6)
 
 
+def test_k1_layouts_per_call():
+    """K1's launches by layout, per call over every profiler attempt; no
+    launch, no entry."""
+    trace = Trace(n_calls=2, window=(0.0, 1000.0), launches=0, device=[])
+    log = [_span(name, s + SHIFT, e + SHIFT) for name, s, e in SPANS]
+    events = [_event("call", 5.0), _event("call", 505.0)]
+    delta = collections.Counter({"k1.launches": 6, "k1.layout.c1": 6, "k1.plain": 1})
+    r = chip_spans.readings(trace, log, events, delta, n_calls=2, attempts=3)
+    assert r["k1_layouts_per_call"] == {"c1": 1}
+    r = chip_spans.readings(trace, log, events, collections.Counter(), n_calls=2)
+    assert r["k1_layouts_per_call"] == {}
+
+
 @pytest.mark.parametrize("lags, expected", [
     ([3.0, 3.0, 4.0], 3.0),  # entering the record_function range costs a few us
     ([2.0, 3.0, 90.0], 3.0),  # one twin entered late does not move the offset
