@@ -1,4 +1,4 @@
-"""A traced run of a benchmark cell with the program's spans on, and the five
+"""A traced run of a benchmark cell with the program's spans on, and the
 per-layer readings of its spans and counters.
 
     python3 chip_spans.py --workload <cell> --seed <n>
@@ -15,7 +15,12 @@ From the root of a checkout, on a machine with a CUDA card. Runs the cell's
 * ``idle_unattributed_pct``: the share of the device's idle time in the
   window in which the main thread's innermost span is ``call`` or none;
 * ``k1_layouts_per_call``: K1's launches per call by the layout they took
-  (the counters ``k1.layout.<layout>``: ``c8`` ... ``c1``, ``global``).
+  (the counters ``k1.layout.<layout>``: ``c8`` ... ``c1``, ``global``);
+* ``rdf_batches_per_call``: the counter ``rdf.batches`` per call, the RDF's
+  frame batches;
+* ``k1_pair_rows_per_launch``: the counter ``k1.pair_rows`` over
+  ``k1.launches``, the species-pair rows of a K1 launch (``None`` without
+  a launch).
 
 The spans are mapped onto the profiler's clock by the ``call`` spans'
 ``record_function`` twins among the profiler's events. With spans on, each
@@ -68,9 +73,8 @@ def offset_us(log, events) -> float:
 
 
 def readings(trace, log, events, delta, n_calls: int, attempts: int = 1) -> dict:
-    """The five readings of the traced window's ``n_calls`` calls and K1's
-    launches by layout; ``delta``, the counters' change, covers every
-    attempt of the profiler."""
+    """The readings of the traced window's ``n_calls`` calls; ``delta``, the
+    counters' change, covers every attempt of the profiler."""
     offset = offset_us(log, events)
     main = threading.main_thread().ident
     spans = [(s.start_ns / 1e3 + offset, s.end_ns / 1e3 + offset, s.name) for s in log
@@ -95,6 +99,9 @@ def readings(trace, log, events, delta, n_calls: int, attempts: int = 1) -> dict
             name.removeprefix("k1.layout."): n / n_calls / attempts
             for name, n in sorted(delta.items()) if name.startswith("k1.layout.")
         },
+        "rdf_batches_per_call": delta["rdf.batches"] / n_calls / attempts,
+        "k1_pair_rows_per_launch":
+            delta["k1.pair_rows"] / delta["k1.launches"] if delta["k1.launches"] else None,
     }
 
 

@@ -8,7 +8,7 @@ frames split over the default mesh (``sharded_rdf_histogram``); the integer
 counts accumulate on the device and come to the host once per run,
 where the prefactors turn them into g(r). Spans (``utils/profiling.py``):
 ``rdf.dispatch`` a batch, ``rdf.fetch`` the one sync, ``rdf.normalise`` the
-host's g(r).
+host's g(r); the counter ``rdf.batches`` counts the frame batches dispatched.
 """
 
 from __future__ import annotations
@@ -131,6 +131,7 @@ class RadialDistributionFunction(TrajectoryCalculator):
                 hist += sharded_rdf_histogram(
                     batch_pos, sid_dev, box, cutoff, n_bins, len(species)
                 )
+            profiling.count("rdf.batches")
         with profiling.annotate("rdf.fetch"):
             counts = hist.cpu().numpy().astype(np.float64)  # one fetch per run
         log.info("RDF: %d frames x %d atoms on %s", n_sampled, sum(n_per_species), device)

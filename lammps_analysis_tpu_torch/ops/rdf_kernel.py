@@ -8,8 +8,9 @@ library builds from the checkout's sources at first use (``_build.py``).
 
 Each call runs in the span ``k1``; the counter ``k1.launches``
 (``utils/profiling.py``) counts the kernel launches, so a run can show that
-it went through the kernel, and ``k1.layout.<layout>`` counts them by where
-the kernel kept its counts (``LAYOUTS``).
+it went through the kernel, ``k1.layout.<layout>`` counts them by where
+the kernel kept its counts (``LAYOUTS``), and ``k1.pair_rows`` adds each
+launch's species-pair rows of the histogram.
 """
 
 from __future__ import annotations
@@ -168,6 +169,7 @@ def rdf_histogram(
             )
         profiling.count("k1.launches")
         profiling.count(f"k1.layout.{LAYOUTS[copies][1]}")
+        profiling.count("k1.pair_rows", n_pairs)
         return out
 
 

@@ -61,7 +61,10 @@ counter                        counts
 ``prefetch.items``             items the prefetch pipeline delivered
 ``adf.batches``                ``AdfBatchRunner.feed`` calls (every pass)
 ``adf.passes``                 ``AdfBatchRunner.finalize`` calls
+``rdf.batches``                frame batches the RDF dispatched
 ``k1.launches``                K1 launches
+``k1.pair_rows``               species-pair rows of K1's histograms, summed
+                               over the launches
 ``k2.launches.<route>``        K2 launches by route (``binned``, ``sweep``,
                                ``z``, ``brick``); ``k2.launches.open`` and
                                ``k2.launches.idx.<route>`` those in a mode

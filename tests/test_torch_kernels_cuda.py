@@ -109,7 +109,7 @@ def test_lj_shape_takes_a_layout_of_at_least_32_resident_warps(cuda):
     h_kernel = rdf_kernel.rdf_histogram(*args)
     torch.cuda.synchronize()
     moved = {name: n for name, n in (counters - before).items() if name.startswith("k1.")}
-    assert moved == {"k1.launches": 1, LAYOUT_COUNTER[layout.mode]: 1}
+    assert moved == {"k1.launches": 1, LAYOUT_COUNTER[layout.mode]: 1, "k1.pair_rows": 1}
     assert torch.equal(h_kernel, rdf_histogram_reference(*args))
 
 

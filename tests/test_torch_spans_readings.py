@@ -2,17 +2,25 @@
 hand-built trace of two calls: the DB's time and connections, the wait on
 the load, the bytes loaded, the device's idle time that no span but
 ``call`` covers, the GPU user annotations of live spans left out of the
-device's busy time, and the spans' offset set by the ``call`` spans'
-``record_function`` twins."""
+device's busy time, the spans' offset set by the ``call`` spans'
+``record_function`` twins, the RDF's frame batches a call and K1's pair
+rows a launch; and ``k1.pair_rows``, the counter the last reads, on the
+card (``cuda``). ``rdf.batches`` is counted by the streaming test
+(``test_torch_rdf_streaming.py``)."""
 
 import collections
 import threading
 import types
 
+import numpy as np
 import pytest
+import torch
 from torch.autograd import DeviceType
 
 import chip_spans
+from lammps_analysis_tpu_torch.ops import rdf_kernel
+from lammps_analysis_tpu_torch.ops.rdf import build_species_layout
+from lammps_analysis_tpu_torch.utils import profiling
 from portbench.trace import Trace
 
 MAIN = threading.main_thread().ident
@@ -70,6 +78,19 @@ def test_k1_layouts_per_call():
     assert r["k1_layouts_per_call"] == {}
 
 
+def test_rdf_batches_per_call_and_k1_pair_rows_per_launch():
+    """The RDF's batches per call and K1's pair rows per launch, over every
+    profiler attempt; no launch reads ``None``, no batch 0."""
+    trace = Trace(n_calls=2, window=(0.0, 1000.0), launches=0, device=[])
+    log = [_span(name, s + SHIFT, e + SHIFT) for name, s, e in SPANS]
+    events = [_event("call", 5.0), _event("call", 505.0)]
+    delta = collections.Counter({"rdf.batches": 24, "k1.launches": 24, "k1.pair_rows": 72})
+    r = chip_spans.readings(trace, log, events, delta, n_calls=2, attempts=3)
+    assert (r["rdf_batches_per_call"], r["k1_pair_rows_per_launch"]) == (4, 3)
+    r = chip_spans.readings(trace, log, events, collections.Counter({"k1.plain": 2}), n_calls=2)
+    assert (r["rdf_batches_per_call"], r["k1_pair_rows_per_launch"]) == (0, None)
+
+
 @pytest.mark.parametrize("lags, expected", [
     ([3.0, 3.0, 4.0], 3.0),  # entering the record_function range costs a few us
     ([2.0, 3.0, 90.0], 3.0),  # one twin entered late does not move the offset
@@ -88,3 +109,20 @@ def test_spans_map_onto_their_twins(lags, expected):
     assert offset == pytest.approx(expected - SHIFT)
     assert max(abs(s + SHIFT + offset - (s + lag)) for s, lag in zip(starts, lags)
                if lag < 50) < 50
+
+
+@pytest.mark.cuda
+def test_k1_pair_rows_counts_each_launch_s_rows():
+    """A K1 launch over 2 species adds their 3 pair rows, over 3 species 6."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    box = (8.0, 8.0, 8.0)
+    rng = np.random.default_rng(3)
+    for counts, rows in (([100, 60], 3), ([50, 40, 30], 6)):
+        sid, n_pad, _, _, _ = build_species_layout(counts, pad_to=8)
+        pos = torch.from_numpy(rng.uniform(0, 8.0, (2, n_pad, 3)).astype(np.float32)).cuda()
+        before = profiling.counters.copy()
+        rdf_kernel.rdf_histogram(pos, torch.from_numpy(sid).cuda(), box, 3.9, 40, len(counts))
+        torch.cuda.synchronize()
+        delta = profiling.counters - before
+        assert (delta["k1.launches"], delta["k1.pair_rows"]) == (1, rows)
