@@ -20,7 +20,11 @@ From the root of a checkout, on a machine with a CUDA card. Runs the cell's
   frame batches;
 * ``k1_pair_rows_per_launch``: the counter ``k1.pair_rows`` over
   ``k1.launches``, the species-pair rows of a K1 launch (``None`` without
-  a launch).
+  a launch);
+* ``k1_general_sweeps_per_call``: K1's j-chunk sweeps that took the general
+  sequences (``ops/rdf_kernel.py::general_sweeps``, a word on the device,
+  read before and after the traced calls as ``k1.general_sweeps``) per call
+  (``None`` without a K1 launch).
 
 The spans are mapped onto the profiler's clock by the ``call`` spans'
 ``record_function`` twins among the profiler's events. With spans on, each
@@ -102,6 +106,8 @@ def readings(trace, log, events, delta, n_calls: int, attempts: int = 1) -> dict
         "rdf_batches_per_call": delta["rdf.batches"] / n_calls / attempts,
         "k1_pair_rows_per_launch":
             delta["k1.pair_rows"] / delta["k1.launches"] if delta["k1.launches"] else None,
+        "k1_general_sweeps_per_call":
+            delta["k1.general_sweeps"] / n_calls / attempts if delta["k1.launches"] else None,
     }
 
 
@@ -111,6 +117,7 @@ def main(argv=None) -> int:
     parser.add_argument("--seed", type=int, required=True)
     args = parser.parse_args(argv)
 
+    from lammps_analysis_tpu_torch.ops import rdf_kernel
     from lammps_analysis_tpu_torch.utils import profiling
     from portbench import harness, spec, trace as pbtrace
 
@@ -128,10 +135,12 @@ def main(argv=None) -> int:
             made.append(1)
             call()
 
-        before = profiling.counters.copy()
+        before, general = profiling.counters.copy(), rdf_kernel.general_sweeps()
         with profiling.tracing() as log:
             trace = profile_calls(counted, n_calls, attempts)
-        seen.update(trace=trace, log=list(log), delta=profiling.counters - before,
+        delta = profiling.counters - before
+        delta["k1.general_sweeps"] = rdf_kernel.general_sweeps() - general
+        seen.update(trace=trace, log=list(log), delta=delta,
                     n_calls=n_calls, attempts=len(made) // n_calls)
         return trace
 

@@ -11,12 +11,23 @@ Each call runs in the span ``k1``; the counter ``k1.launches``
 it went through the kernel, ``k1.layout.<layout>`` counts them by where
 the kernel kept its counts (``LAYOUTS``), and ``k1.pair_rows`` adds each
 launch's species-pair rows of the histogram.
+
+The kernel takes its in-box sequences (the minimum image and the bin on the
+FP32 and ALU pipes, ``csrc/rdf_histogram.cu``) wherever every atom of a
+warp's tile and j-chunk lies within one box edge of the origin, and its
+general ones elsewhere. It adds the j-chunk sweeps that took the general
+sequences into one int64 word per device, which the wrapper allocates at
+the first launch there and never clears: ``general_sweeps(device)`` reads
+it (it synchronises: for tests and ``chip_spans.py``, never the call
+path), and readers take differences. Wrapped coordinates, in ``[0, box)``,
+never take the general sequences.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+import threading
 from typing import NamedTuple
 
 import torch
@@ -53,7 +64,7 @@ class Layout(NamedTuple):
 def _library() -> ctypes.CDLL:
     lib = _build.load_library()
     lib.rdf_histogram_launch.argtypes = (
-        [ctypes.c_void_p] * 3
+        [ctypes.c_void_p] * 4
         + [ctypes.c_int64] * 6
         + [ctypes.c_float] * 8
         + [ctypes.c_void_p]
@@ -64,6 +75,35 @@ def _library() -> ctypes.CDLL:
     lib.rdf_cuda_error_string.argtypes = [ctypes.c_int]
     lib.rdf_cuda_error_string.restype = ctypes.c_char_p
     return lib
+
+
+#: the general-sweep word of each CUDA device, by device index
+_general_words: dict[int, torch.Tensor] = {}
+_general_words_lock = threading.Lock()
+
+
+def _device_index(device) -> int:
+    device = torch.device(device)
+    return device.index if device.index is not None else torch.cuda.current_device()
+
+
+def _general_word(device: torch.device) -> torch.Tensor:
+    index = _device_index(device)
+    with _general_words_lock:
+        if index not in _general_words:
+            _general_words[index] = torch.zeros(1, dtype=torch.int64, device=device)
+        return _general_words[index]
+
+
+def general_sweeps(device="cuda") -> int:
+    """The j-chunk sweeps of K1's warps on ``device`` that took the general
+    sequences since the process began (0 before the first launch there).
+    Synchronises the device."""
+    word = _general_words.get(_device_index(device))
+    if word is None:
+        return 0
+    torch.cuda.synchronize(device)
+    return int(word.item())
 
 
 def _check(positions, species_id, box, cutoff, n_bins, n_species) -> None:
@@ -158,6 +198,7 @@ def rdf_histogram(
                 raise RuntimeError("rdf_histogram: could not query the device's occupancy")
             err = lib.rdf_histogram_launch(
                 positions.data_ptr(), species_id.data_ptr(), out.data_ptr(),
+                _general_word(positions.device).data_ptr(),
                 n_frames, n_atoms, n_species, n_bins, r0, r1,
                 bx, by, bz, ibx, iby, ibz, threshold, inv_bin,
                 torch.cuda.current_stream(positions.device).cuda_stream,

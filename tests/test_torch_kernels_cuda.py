@@ -3,7 +3,11 @@
 Small versions of the kernel phase of ``chip_smoke.py``: the pair histogram
 (``csrc/rdf_histogram.cu`` through ``ops/rdf_kernel.py``, in each of its
 five histogram layouts, and at the LJ shape in one that leaves at least 32
-warps resident on an SM) must equal ``rdf_histogram_reference`` bin for bin;
+warps resident on an SM) must equal ``rdf_histogram_reference`` bin for bin,
+by its in-box sequences and by its general ones (coordinates beyond a box,
+warps split between the two, ties of the rounding and the box's edge, a
+bin clamped to ``n_bins - 1``, more than 2^22 bins), each with the count of
+sweeps that took the general sequences (``rdf_kernel.general_sweeps``);
 both routes of the neighbor extract (the sweep ``csrc/adf_neighbor_extract.cu``
 and the cell lists ``csrc/adf_neighbor_cells.cu``) must equal
 ``neighbor_extract_reference`` exactly (the binned route on every row whose
@@ -124,6 +128,117 @@ def test_kernel_rejects_cpu_species_with_cuda_positions(cuda):
     pos, sid = _case([64], 1, (6.0, 6.0, 6.0), seed=1, device=cuda)
     with pytest.raises(ValueError, match="species_id on cpu"):
         rdf_kernel.rdf_histogram(pos, sid.cpu(), (6.0, 6.0, 6.0), 2.9, 10, 1)
+
+
+def _general_sweeps_of(*args, rows=None):
+    """K1's histogram of ``args`` and the j-chunk sweeps that took the
+    general sequences in its launch."""
+    before = rdf_kernel.general_sweeps()
+    h = rdf_kernel.rdf_histogram(*args, rows=rows)
+    return h, rdf_kernel.general_sweeps() - before
+
+
+@pytest.mark.parametrize(
+    "counts, box, cutoff, n_bins, mode",
+    [
+        ([300, 260], (12.0, 13.0, 14.0), 5.9, 500, "shared4"),
+        ([200, 200, 200, 200], (16.0, 16.0, 16.0), 7.9, 6000, "global"),
+    ],
+    ids=["shared", "global-atomics"],
+)
+def test_kernel_far_outside_the_box_takes_the_general_sequences(cuda, counts, box, cutoff,
+                                                                 n_bins, mode):
+    """Coordinates up to four boxes out on either side, negative too: every
+    sweep takes today's sequences, and the counts stay the plain version's."""
+    pos, sid = _case(counts, 2, box, seed=41, device=cuda)
+    rng = np.random.default_rng(41)
+    images = rng.integers(-4, 5, size=pos.shape).astype(np.float32) * np.asarray(box, np.float32)
+    pos += torch.from_numpy(images).to(cuda)
+    args = (pos, sid, box, cutoff, n_bins, len(counts))
+    assert rdf_kernel.histogram_mode(len(counts), n_bins) == mode
+    h_kernel, general = _general_sweeps_of(*args)
+    assert general > 0
+    assert int(h_kernel.sum()) > 0
+    assert torch.equal(h_kernel, rdf_histogram_reference(*args))
+
+
+def test_kernel_splits_warps_between_the_sequences(cuda):
+    """Frame 0 lies in ``[0, box)``; in frame 1 a few atoms lie outside
+    ``[-box, box]``, so only the warps whose tile or chunk holds one take the
+    general sequences. Row stripes split them too."""
+    counts, box = [700, 600], (20.0, 21.0, 22.0)
+    pos, sid = _case(counts, 2, box, seed=42, device=cuda)
+    pos[1, 100:140, 0] += 3 * box[0]
+    pos[1, 900:905, 1] -= 1.5 * box[1]
+    args = (pos, sid, box, 9.9, 500, len(counts))
+    h_first, general = _general_sweeps_of(pos[:1].contiguous(), *args[1:])
+    assert general == 0
+    assert torch.equal(h_first, rdf_histogram_reference(pos[:1].contiguous(), *args[1:]))
+    h_kernel, general = _general_sweeps_of(*args)
+    assert general > 0
+    assert torch.equal(h_kernel, rdf_histogram_reference(*args))
+    for rows in ((0, 384), (384, pos.shape[1])):
+        stripe, _ = _general_sweeps_of(*args, rows=rows)
+        assert torch.equal(stripe, rdf_histogram_reference(*args, rows=rows))
+
+
+def test_kernel_rounds_ties_and_the_box_edge_as_the_general_sequences(cuda):
+    """A power-of-two box (``1/box`` exact) with atoms on a grid of half
+    boxes from ``-box`` to ``box``: ``dx / box`` lands on 0, +-0.5, +-1,
+    +-1.5 and +-2 exactly, so the in-box rounding meets its ties (to even)
+    and the guard's edge ``|c| = box``; the rest are random within
+    ``[-box, box]``. No sweep leaves the in-box sequences."""
+    box = (8.0, 8.0, 8.0)
+    grid = np.stack(np.meshgrid(*[np.arange(-8.0, 8.5, 4.0)] * 3, indexing="ij"), -1).reshape(-1, 3)
+    rng = np.random.default_rng(43)
+    counts = [len(grid) + 75, 200]
+    sid, n_pad, _, _, _ = build_species_layout(counts, pad_to=8)
+    pos = np.zeros((2, n_pad, 3), np.float32)
+    pos[:, : len(grid)] = grid
+    pos[:, len(grid): sum(counts)] = rng.uniform(-8.0, 8.0, (2, sum(counts) - len(grid), 3))
+    pos = torch.from_numpy(pos).to(cuda)
+    args = (pos, torch.from_numpy(sid).to(cuda), box, 3.95, 79, len(counts))
+    h_kernel, general = _general_sweeps_of(*args)
+    assert general == 0
+    assert torch.equal(h_kernel, rdf_histogram_reference(*args))
+
+
+def test_kernel_clamps_a_bin_rounded_up_to_n_bins(cuda):
+    """A pair just inside the cutoff whose ``d * n_bins / cutoff`` rounds up
+    to ``n_bins``: the in-box bin clamps it into the last bin, as the plain
+    version's ``min`` does."""
+    n_bins = 100
+    for cut in np.linspace(6.0, 7.0, 4001, dtype=np.float32):
+        inv = np.float32(n_bins) / cut
+        d = np.nextafter(cut, np.float32(0))
+        root = np.float32(np.sqrt(np.float64(d * d)))
+        if root < cut and np.float32(root * inv) >= n_bins:
+            break
+    else:
+        raise AssertionError("no cutoff in [6, 7] rounds a kept pair up to n_bins")
+    box = (16.0, 16.0, 16.0)
+    pos, sid = _case([300, 100], 1, box, seed=44, device=cuda)
+    pos[0, 0] = torch.tensor([0.0, 0.0, 0.0])
+    pos[0, 1] = torch.tensor([float(d), 0.0, 0.0])
+    args = (pos, sid, box, float(cut), n_bins, 2)
+    h_kernel, general = _general_sweeps_of(*args)
+    assert general == 0
+    h_plain = rdf_histogram_reference(*args)
+    assert int(h_plain[0, -1]) > 0
+    assert torch.equal(h_kernel, h_plain)
+
+
+@pytest.mark.parametrize("n_bins, general", [(2**22, False), (2**22 + 1, True)],
+                         ids=["2^22-bins", "past-2^22-bins"])
+def test_kernel_past_2_22_bins_takes_the_general_sequences(cuda, n_bins, general):
+    """The in-box bin holds up to 2^22 bins; past them the host sends every
+    sweep to the general sequences, on the same wrapped positions."""
+    box = (10.0, 10.0, 10.0)
+    pos, sid = _case([300], 2, box, seed=45, device=cuda)
+    args = (pos, sid, box, 4.9, n_bins, 1)
+    h_kernel, sweeps = _general_sweeps_of(*args)
+    assert (sweeps > 0) == general
+    assert torch.equal(h_kernel, rdf_histogram_reference(*args))
 
 
 # ---------------------------------------------------------------- ADF, K2 and K3

@@ -4,7 +4,7 @@ the load, the bytes loaded, the device's idle time that no span but
 ``call`` covers, the GPU user annotations of live spans left out of the
 device's busy time, the spans' offset set by the ``call`` spans'
 ``record_function`` twins, the RDF's frame batches a call and K1's pair
-rows a launch; and ``k1.pair_rows``, the counter the last reads, on the
+rows a launch, K1's sweeps by the general sequences a call; and ``k1.pair_rows``, the counter the last reads, on the
 card (``cuda``). ``rdf.batches`` is counted by the streaming test
 (``test_torch_rdf_streaming.py``)."""
 
@@ -89,6 +89,23 @@ def test_rdf_batches_per_call_and_k1_pair_rows_per_launch():
     assert (r["rdf_batches_per_call"], r["k1_pair_rows_per_launch"]) == (4, 3)
     r = chip_spans.readings(trace, log, events, collections.Counter({"k1.plain": 2}), n_calls=2)
     assert (r["rdf_batches_per_call"], r["k1_pair_rows_per_launch"]) == (0, None)
+
+
+def test_k1_general_sweeps_per_call():
+    """K1's sweeps by the general sequences per call over every profiler
+    attempt; 0 where every sweep stayed in the box, ``None`` without a
+    launch."""
+    trace = Trace(n_calls=2, window=(0.0, 1000.0), launches=0, device=[])
+    log = [_span(name, s + SHIFT, e + SHIFT) for name, s, e in SPANS]
+    events = [_event("call", 5.0), _event("call", 505.0)]
+    delta = collections.Counter({"k1.launches": 6, "k1.general_sweeps": 30})
+    r = chip_spans.readings(trace, log, events, delta, n_calls=2, attempts=3)
+    assert r["k1_general_sweeps_per_call"] == 5
+    delta = collections.Counter({"k1.launches": 6, "k1.general_sweeps": 0})
+    r = chip_spans.readings(trace, log, events, delta, n_calls=2, attempts=3)
+    assert r["k1_general_sweeps_per_call"] == 0
+    r = chip_spans.readings(trace, log, events, collections.Counter({"rdf.batches": 2}), n_calls=2)
+    assert r["k1_general_sweeps_per_call"] is None
 
 
 @pytest.mark.parametrize("lags, expected", [
