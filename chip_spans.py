@@ -9,7 +9,6 @@ From the root of a checkout, on a machine with a CUDA card. Runs the cell's
 ``"spans"`` object beside it:
 
 * ``db_ms_per_call``: the union of the main thread's ``db.*`` spans, per call;
-* ``db_connections_per_call``: the counter ``db.connections`` per call;
 * ``load_wait_ms_per_call``: the union of ``prefetch.wait`` spans, per call;
 * ``loaded_MiB_per_call``: the counter ``store.bytes`` per call, in MiB;
 * ``idle_unattributed_pct``: the share of the device's idle time in the
@@ -94,7 +93,6 @@ def readings(trace, log, events, delta, n_calls: int, attempts: int = 1) -> dict
 
     return {
         "db_ms_per_call": ms_per_call(lambda name: name.startswith("db.")),
-        "db_connections_per_call": delta["db.connections"] / n_calls / attempts,
         "load_wait_ms_per_call": ms_per_call(lambda name: name == "prefetch.wait"),
         "loaded_MiB_per_call": delta["store.bytes"] / n_calls / attempts / 2**20,
         "idle_unattributed_pct":

@@ -141,10 +141,12 @@ class Calculator(abc.ABC):
                 cache_args = dict(self.args)
                 if force:
                     exp.db.delete_computations(exp.name, self.name, cache_args)
-                # rank 0 decides hit or miss for every rank
-                comp = rank_zero(exp.db.find_computation)(
-                    exp.name, self.name, cache_args, exp.version
-                )
+                    comp = None
+                else:
+                    # rank 0 decides hit or miss for every rank
+                    comp = rank_zero(exp.db.find_computation)(
+                        exp.name, self.name, cache_args, exp.version
+                    )
                 if comp is None:
                     log.info("%s: computing on %s", self.name, exp.name)
                     data = self.run_calculator()

@@ -14,9 +14,9 @@ with a compact schema holding the same information:
   calculator re-run with identical canonical args and experiment version is a
   lookup, not a recompute (reference: ``calculator_database.py:103-172``).
 
-Every public method of ``ResultsDatabase`` runs in a span ``db.<method>``;
-the counter ``db.connections`` counts the connections it opens, one a query
-(``utils/profiling.py``).
+Every public method of ``ResultsDatabase`` runs in a span ``db.<method>``
+(``utils/profiling.py``). Each thread keeps one connection to the file for
+all of its queries; the reads find an experiment by name and write nothing.
 """
 
 from __future__ import annotations
@@ -25,6 +25,7 @@ import dataclasses
 import json
 import pathlib
 import sqlite3
+import threading
 import time
 from typing import Any, Dict, List, Optional, Union
 
@@ -149,18 +150,23 @@ class ResultsDatabase:
     def __init__(self, path: Union[str, pathlib.Path]):
         self.path = pathlib.Path(path)
         self.path.parent.mkdir(parents=True, exist_ok=True)
-        with self._connect() as con:
+        self._local = threading.local()
+        with self._connection() as con:
+            # the file keeps the mode: every later connection is in WAL mode
+            con.execute("PRAGMA journal_mode=WAL")
             con.executescript(_SCHEMA)
 
-    def _connect(self) -> sqlite3.Connection:
-        profiling.count("db.connections")
-        con = sqlite3.connect(self.path)
-        con.execute("PRAGMA journal_mode=WAL")
+    def _connection(self) -> sqlite3.Connection:
+        """This thread's connection, made at its first query; it closes when
+        the thread or the database is collected."""
+        con = getattr(self._local, "con", None)
+        if con is None:
+            con = self._local.con = sqlite3.connect(self.path)
         return con
 
     # ------------------------------------------------------------ experiments
     def ensure_experiment(self, name: str) -> int:
-        with self._connect() as con:
+        with self._connection() as con:
             con.execute(
                 "INSERT OR IGNORE INTO experiments (name) VALUES (?)", (name,)
             )
@@ -170,19 +176,19 @@ class ResultsDatabase:
         return int(eid)
 
     def list_experiments(self) -> List[str]:
-        with self._connect() as con:
+        with self._connection() as con:
             rows = con.execute("SELECT name FROM experiments ORDER BY id").fetchall()
         return [r[0] for r in rows]
 
     def experiment_version(self, name: str) -> int:
-        with self._connect() as con:
+        with self._connection() as con:
             row = con.execute(
                 "SELECT version FROM experiments WHERE name=?", (name,)
             ).fetchone()
         return int(row[0]) if row else 0
 
     def bump_experiment_version(self, name: str) -> int:
-        with self._connect() as con:
+        with self._connection() as con:
             con.execute(
                 "UPDATE experiments SET version = version + 1 WHERE name=?", (name,)
             )
@@ -192,13 +198,13 @@ class ResultsDatabase:
         return int(v)
 
     def set_active(self, name: str, active: bool):
-        with self._connect() as con:
+        with self._connection() as con:
             con.execute(
                 "UPDATE experiments SET active=? WHERE name=?", (int(active), name)
             )
 
     def active_experiments(self) -> List[str]:
-        with self._connect() as con:
+        with self._connection() as con:
             rows = con.execute(
                 "SELECT name FROM experiments WHERE active=1 ORDER BY id"
             ).fetchall()
@@ -207,33 +213,33 @@ class ResultsDatabase:
     # -------------------------------------------------------------- attributes
     def set_attribute(self, experiment: str, name: str, value: Any):
         eid = self.ensure_experiment(experiment)
-        with self._connect() as con:
+        with self._connection() as con:
             con.execute(
                 "INSERT OR REPLACE INTO experiment_attributes VALUES (?,?,?)",
                 (eid, name, ordered_json(value)),
             )
 
     def get_attribute(self, experiment: str, name: str, default=None):
-        eid = self.ensure_experiment(experiment)
-        with self._connect() as con:
+        with self._connection() as con:
             row = con.execute(
-                "SELECT value FROM experiment_attributes "
-                "WHERE experiment_id=? AND name=?",
-                (eid, name),
+                "SELECT a.value FROM experiment_attributes a "
+                "JOIN experiments e ON a.experiment_id = e.id "
+                "WHERE e.name=? AND a.name=?",
+                (experiment, name),
             ).fetchone()
         if row is None:
             return default
         return json.loads(row[0])
 
     def set_project_attribute(self, name: str, value: Any):
-        with self._connect() as con:
+        with self._connection() as con:
             con.execute(
                 "INSERT OR REPLACE INTO project_attributes VALUES (?,?)",
                 (name, canonical_json(value)),
             )
 
     def get_project_attribute(self, name: str, default=None):
-        with self._connect() as con:
+        with self._connection() as con:
             row = con.execute(
                 "SELECT value FROM project_attributes WHERE name=?", (name,)
             ).fetchone()
@@ -248,14 +254,13 @@ class ResultsDatabase:
         Reference analog: ``CalculatorDatabase.get_computation_data``
         (``calculator_database.py:103-172``).
         """
-        eid = self.ensure_experiment(experiment)
-        args_key = canonical_json(args)
-        with self._connect() as con:
+        with self._connection() as con:
             row = con.execute(
-                "SELECT id, args_json FROM computations WHERE experiment_id=? "
-                "AND name=? AND args_key=? AND experiment_version=? "
-                "ORDER BY id DESC LIMIT 1",
-                (eid, calc_name, args_key, version),
+                "SELECT c.id, c.args_json FROM computations c "
+                "JOIN experiments e ON c.experiment_id = e.id WHERE e.name=? "
+                "AND c.name=? AND c.args_key=? AND c.experiment_version=? "
+                "ORDER BY c.id DESC LIMIT 1",
+                (experiment, calc_name, canonical_json(args), version),
             ).fetchone()
             if row is None:
                 return None
@@ -279,7 +284,7 @@ class ResultsDatabase:
         """Persist a finished computation with full provenance."""
         eid = self.ensure_experiment(experiment)
         args_key = canonical_json(args)
-        with self._connect() as con:
+        with self._connection() as con:
             cur = con.execute(
                 "INSERT INTO computations "
                 "(experiment_id, name, args_key, args_json, experiment_version,"
@@ -315,34 +320,27 @@ class ResultsDatabase:
         removed. This is the user-facing \"force recompute\" hook — the
         next identical call recomputes instead of hitting the cache.
         """
-        eid = self.ensure_experiment(experiment)
-        where = "experiment_id=? AND name=?"
-        params: list = [eid, calc_name]
+        where = "experiment_id=(SELECT id FROM experiments WHERE name=?) AND name=?"
+        params: list = [experiment, calc_name]
         if args is not None:
             where += " AND args_key=?"
             params.append(canonical_json(args))
-        with self._connect() as con:
-            ids = [
-                r[0]
-                for r in con.execute(
-                    f"SELECT id FROM computations WHERE {where}", params
-                )
-            ]
-            for cid in ids:
-                con.execute(
-                    "DELETE FROM computation_results WHERE computation_id=?",
-                    (cid,),
-                )
-                con.execute("DELETE FROM computations WHERE id=?", (cid,))
-        return len(ids)
+        with self._connection() as con:
+            con.execute(
+                "DELETE FROM computation_results WHERE computation_id IN "
+                f"(SELECT id FROM computations WHERE {where})",
+                params,
+            )
+            cur = con.execute(f"DELETE FROM computations WHERE {where}", params)
+        return cur.rowcount
 
     def list_computations(self, experiment: str) -> List[dict]:
-        eid = self.ensure_experiment(experiment)
-        with self._connect() as con:
+        with self._connection() as con:
             rows = con.execute(
-                "SELECT name, args_json, experiment_version, created "
-                "FROM computations WHERE experiment_id=? ORDER BY id",
-                (eid,),
+                "SELECT c.name, c.args_json, c.experiment_version, c.created "
+                "FROM computations c JOIN experiments e ON c.experiment_id = e.id "
+                "WHERE e.name=? ORDER BY c.id",
+                (experiment,),
             ).fetchall()
         return [
             {"name": n, "args": json.loads(a), "experiment_version": v, "created": c}

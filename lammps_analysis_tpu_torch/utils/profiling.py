@@ -55,7 +55,6 @@ span                       where
 =============================  =============================================
 counter                        counts
 =============================  =============================================
-``db.connections``             SQLite connections the results DB opened
 ``store.bytes``                bytes of the arrays the store's load returned
 ``store.frames``               frames the store's load returned (per dataset)
 ``prefetch.items``             items the prefetch pipeline delivered

@@ -283,11 +283,15 @@ def test_calculators_match_one_device(calc_world, one_device_calcs, name):
 
 def test_rank_zero_writes_and_the_cache_hits(calc_world):
     """Rank 0 alone wrote the store (the ingests and the unwrap that the walk
-    Einstein's dependency check ran), one DB row per computation, and the
+    Einstein's dependency check ran) and the results DB (ranks 1-3 ran no
+    INSERT, UPDATE, DELETE or REPLACE), one DB row per computation, and the
     second calls were cache hits on every rank: no collective."""
     writes = [w["writes"] for w in calc_world]
     assert "Na/Unwrapped_Positions" in writes[0] and "Na/Positions" in writes[0]
     assert writes[1:] == [[], [], []]
+    db_writes = [w["db_writes"] for w in calc_world]
+    assert any(s.startswith("INSERT INTO computations") for s in db_writes[0])
+    assert db_writes[1:] == [[], [], []]
     expected_rows = [*torch_worlds.CALCULATORS, "EinsteinDiffusionCoefficients"]
     for world in calc_world:
         assert world["rows"] == expected_rows

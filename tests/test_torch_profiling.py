@@ -16,7 +16,6 @@ from lammps_analysis_tpu_torch.calculators import angular_distribution_function,
 from lammps_analysis_tpu_torch.calculators import radial_distribution_function
 from lammps_analysis_tpu_torch.database import SpeciesInfo, TrajectoryChunkData, TrajectoryMetadata
 from lammps_analysis_tpu_torch.database.properties import PropertyInfo
-from lammps_analysis_tpu_torch.database.results_db import ResultsDatabase
 from lammps_analysis_tpu_torch.database.trajectory_store import TrajectoryStore
 from lammps_analysis_tpu_torch.file_io import ScriptInput
 from lammps_analysis_tpu_torch.memory.planner import BatchPlanner
@@ -145,8 +144,7 @@ def _experiment(root):
 @pytest.mark.parametrize("calc", sorted(CALLS))
 def test_counters_of_a_forced_call_equal_what_is_observed(tmp_path, monkeypatch, calc):
     """One forced call (after an unforced one has run the dependencies):
-    ``db.connections`` equals the connections a wrapper of ``_connect``
-    sees, ``store.bytes`` and ``store.frames`` the arrays the store's load
+    ``store.bytes`` and ``store.frames`` equal the arrays the store's load
     returned, ``prefetch.items`` the items handed to the prefetch pipeline,
     and the ADF's ``adf.batches`` and ``adf.passes`` its 3 batches and one
     pass. Under ``tracing()`` every span of the call carries its id."""
@@ -155,12 +153,8 @@ def test_counters_of_a_forced_call_equal_what_is_observed(tmp_path, monkeypatch,
     run = getattr(exp.run, name)
     run(plot=False, **kwargs)
 
-    seen = {"connections": 0, "items": 0, "loads": []}
-    connect, load = ResultsDatabase._connect, TrajectoryStore.load
-
-    def counted_connect(self):
-        seen["connections"] += 1
-        return connect(self)
+    seen = {"items": 0, "loads": []}
+    load = TrajectoryStore.load
 
     def counted_load(self, *args, **kw):
         out = load(self, *args, **kw)
@@ -172,7 +166,6 @@ def test_counters_of_a_forced_call_equal_what_is_observed(tmp_path, monkeypatch,
         seen["items"] += len(items)
         return prefetch.prefetch_to_device(load_fn, items, *args, **kw)
 
-    monkeypatch.setattr(ResultsDatabase, "_connect", counted_connect)
     monkeypatch.setattr(TrajectoryStore, "load", counted_load)
     for module in (base, radial_distribution_function, angular_distribution_function):
         monkeypatch.setattr(module, "prefetch_to_device", counted_prefetch)
@@ -182,8 +175,7 @@ def test_counters_of_a_forced_call_equal_what_is_observed(tmp_path, monkeypatch,
         run(plot=False, force=True, **kwargs)
     delta = profiling.counters - before
 
-    assert seen["connections"] > 0 and seen["loads"] and seen["items"] > 0
-    assert delta["db.connections"] == seen["connections"]
+    assert seen["loads"] and seen["items"] > 0
     assert delta["store.bytes"] == sum(nbytes for nbytes, _ in seen["loads"])
     assert delta["store.frames"] == sum(frames for _, frames in seen["loads"])
     assert delta["prefetch.items"] == seen["items"]
@@ -195,6 +187,6 @@ def test_counters_of_a_forced_call_equal_what_is_observed(tmp_path, monkeypatch,
     (call,) = [s for s in log if s.name == "call"]
     assert all(s.call == call.id for s in log)
     names = {s.name for s in log}
-    assert {"db.find_computation", "db.store_computation", "store.load", "prefetch.load",
+    assert {"db.delete_computations", "db.store_computation", "store.load", "prefetch.load",
             "prefetch.wait", f"{calc}.fetch", f"{calc}.normalise"} <= names
     assert sum(s.name == "store.load" for s in log) == len(seen["loads"])  # one path a load

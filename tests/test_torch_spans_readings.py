@@ -1,5 +1,5 @@
 """``chip_spans.py``'s readings of the program's spans and counters, on a
-hand-built trace of two calls: the DB's time and connections, the wait on
+hand-built trace of two calls: the DB's time, the wait on
 the load, the bytes loaded, the device's idle time that no span but
 ``call`` covers, the GPU user annotations of live spans left out of the
 device's busy time, the spans' offset set by the ``call`` spans'
@@ -51,10 +51,9 @@ def test_readings_of_a_hand_built_trace():
     log = [_span(name, s + SHIFT, e + SHIFT) for name, s, e in SPANS]
     log.append(_span("db.get_attribute", 800 + SHIFT, 900 + SHIFT, thread=MAIN + 1))  # a worker's
     events = [_event("call", 5.0), _event("call", 505.0)]  # the call spans' twins
-    delta = collections.Counter({"db.connections": 44, "store.bytes": 2 * 2**20})
+    delta = collections.Counter({"store.bytes": 2 * 2**20})
     r = chip_spans.readings(trace, log, events, delta, n_calls=2)
     assert r["db_ms_per_call"] == pytest.approx((50 + 60) / 1e3 / 2)
-    assert r["db_connections_per_call"] == 22
     assert r["load_wait_ms_per_call"] == pytest.approx((50 + 40) / 1e3 / 2)
     assert r["loaded_MiB_per_call"] == 1
     # busy 100-300 (the annotation left out); idle 0-100 and 300-1000, of
@@ -62,7 +61,7 @@ def test_readings_of_a_hand_built_trace():
     assert r["idle_unattributed_pct"] == pytest.approx(100 * (10 + 580) / 800)
     # three profiler attempts: the counters cover all six calls
     r = chip_spans.readings(trace, log, events, delta, n_calls=2, attempts=3)
-    assert r["db_connections_per_call"] == pytest.approx(44 / 6)
+    assert r["loaded_MiB_per_call"] == pytest.approx(2 / 6)
 
 
 def test_k1_layouts_per_call():

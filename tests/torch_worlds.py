@@ -8,7 +8,10 @@ the JAX package and for the port's one-process reference.
 
 from __future__ import annotations
 
+import contextlib
 import importlib
+import sys
+import threading
 
 import numpy as np
 import torch
@@ -25,6 +28,38 @@ CALCULATORS = {
     "GreenKuboDiffusionCoefficients": dict(data_range=32, correlation_time=8),
 }
 ADF_BUDGET = 2**30  # one planner budget for every ADF, so all split the same batches
+#: the first words of the SQL statements that write
+WRITE_STATEMENTS = ("INSERT", "UPDATE", "DELETE", "REPLACE")
+
+
+def db_writes(statements) -> list:
+    """The statements among ``statements`` that write."""
+    return [s for s in statements if s.lstrip().split(None, 1)[0].upper() in WRITE_STATEMENTS]
+
+
+@contextlib.contextmanager
+def db_connections():
+    """Inside, each connection that the port's results DB opens traces its
+    SQL statements; yields a list of ``(thread id, statements)``, one entry
+    a connection, in the order they were opened."""
+    import sqlite3
+
+    connect = sqlite3.connect
+    made = []
+
+    def traced(*args, **kwargs):
+        con = connect(*args, **kwargs)
+        if sys._getframe(1).f_globals.get("__name__") == "lammps_analysis_tpu_torch.database.results_db":
+            statements = []
+            con.set_trace_callback(statements.append)
+            made.append((threading.get_ident(), statements))
+        return con
+
+    sqlite3.connect = traced
+    try:
+        yield made
+    finally:
+        sqlite3.connect = connect
 
 
 def f32(a):
@@ -238,8 +273,9 @@ def calculators(root) -> dict:
 
 def calculator_world(root) -> dict:
     """Rank body: :func:`calculators` over the world's default mesh, with
-    this rank's store writes and collectives; the same calls again (cache
-    hits: no collective); the DB's rows; this rank's planner budget."""
+    this rank's store writes, results-DB writes and collectives; the same
+    calls again (cache hits: no collective); the DB's rows; this rank's
+    planner budget."""
     from lammps_analysis_tpu_torch.database.trajectory_store import TrajectoryStore
     from lammps_analysis_tpu_torch.memory.planner import BatchPlanner
     from lammps_analysis_tpu_torch.utils.profiling import counters
@@ -252,17 +288,19 @@ def calculator_world(root) -> dict:
         return open_for_write(self, path)
 
     TrajectoryStore._open_for_write = counted
-    try:
-        first = calculators(root)
-        collectives = counters["collectives"]
-        again = calculators(root)
-    finally:
-        TrajectoryStore._open_for_write = open_for_write
-    rows = [c["name"] for c in nacl_experiment("lammps_analysis_tpu_torch", root).db.list_computations("e")]
-    rows += [c["name"] for c in walk_experiment(root).db.list_computations("w")]
+    with db_connections() as connections:
+        try:
+            first = calculators(root)
+            collectives = counters["collectives"]
+            again = calculators(root)
+        finally:
+            TrajectoryStore._open_for_write = open_for_write
+        rows = [c["name"] for c in nacl_experiment("lammps_analysis_tpu_torch", root).db.list_computations("e")]
+        rows += [c["name"] for c in walk_experiment(root).db.list_computations("w")]
     return dict(
         results=first, again_equal=again == first, collectives=collectives,
         collectives_again=counters["collectives"] - collectives, writes=writes, rows=rows,
+        db_writes=[s for _, statements in connections for s in db_writes(statements)],
         budget=BatchPlanner().budget_bytes,
     )
 
