@@ -1,20 +1,23 @@
-"""K1's pair loop with and without its XU work, timed side by side on one card.
+"""K1's pair loop in variants of its source, counted and timed side by side on one card.
 
     python3 benchmarks/k1_xu_ab.py OUT VARIANT [VARIANT ...]
 
 Each VARIANT is a copy of ``lammps_analysis_tpu_torch/csrc/rdf_histogram.cu``
 with changes joined by ``+``; ``checkout`` is the file as it is:
 
-* ``file=PATH``: another source with one of K1's two C interfaces, such as
-  a parent commit's kernel (the interface with the general-sweep word is
-  the one whose source names ``general_sweeps``);
+* ``file=PATH``: another source with one of K1's three C interfaces, such
+  as a parent commit's kernel (the source names ``unfolded_sweeps`` where
+  its interface takes both sweep words and the fold, ``general_sweeps``
+  where it takes the general word alone);
 * ``rint-magic``: the minimum image's ``rintf`` as ``(q + 1.5 * 2^23) -
   1.5 * 2^23`` and its ``dx - b * r`` as one FMA, with no guard (exact only
   where ``|r| <= 2``, so only on wrapped positions: a probe of the
   rounding's share);
 * ``bin-rd``: the bin's ``floorf`` and cast to ``int`` as ``2^23 +
   min(x, n_bins - 1)`` rounded down, read as an integer (a probe of the
-  conversion's share).
+  conversion's share);
+* ``nofold``: the host never lets a warp fold the minimum image, so the
+  in-box sequences take the fold's sweeps (a probe of the fold's share).
 
 The patches apply to a source whose pair loop calls ``min_image`` on each
 component and bins with ``floorf``, as the parent's does.
@@ -23,18 +26,27 @@ Every variant is built with the port's nvcc flags into
 ``lammps_analysis_tpu_torch/_build/k1_variants/`` (ptxas' registers
 printed) and disassembled with ``cuobjdump -sass`` into ``OUT``: for each
 instantiation of the kernel, the counts of ``FRND``, ``F2I``, ``MUFU``,
-shared reductions and all instructions. Then each variant runs the cases:
-LJ's shape (LAMMPS' in.lj as ``lj_melt_32k`` holds it: 32 frames x 32000
-atoms, 114.38 A box, cutoff 57.09 A, 5709 bins), NaCl's (``nacl_melt_32k``:
-32 frames x 2 x 16000 ions, 104.04 A box, cutoff 51.92 A, 5192 bins, 3 pair
-rows) and LJ's shape moved two boxes out in x (8 frames; the guard sends
-the new kernel's sweeps to the general sequences). Each run is held to
+shared reductions and all instructions, and for each of its pair loops
+(``pair_loops``) the instructions a pair and the route they take. Then
+each variant runs the cases: LJ's shape (LAMMPS' in.lj as ``lj_melt_32k``
+holds it: 32 frames x 32000 atoms, 114.38 A box, cutoff 57.09 A, 5709
+bins), NaCl's (``nacl_melt_32k``: 32 frames x 2 x 16000 ions, 104.04 A box,
+cutoff 51.92 A, 5192 bins, 3 pair rows), LJ's shape centred on the origin
+(8 frames; the fold's guard sends the sweeps to the in-box sequences) and
+moved two boxes out in x (8 frames; both guards send them to the general
+sequences). Each run is held to
 ``rdf_histogram_reference`` bin for bin, then timed with CUDA events around
 5 back-to-back launches (the histogram zeroed before each), in turns
 (forward, then backward, three times): the least and the median of the six
-rounds, ms a launch, and G pair tests/s at the least. One JSON line a
-variant and case goes to ``OUT/k1_xu_ab.jsonl``. Needs a CUDA card, nvcc
-and cuobjdump; run from the root of a checkout.
+rounds, ms a launch, G pair tests/s at the least, and the launch's sweeps
+by the general and the unfolded in-box sequences. One JSON line a variant
+and case goes to ``OUT/k1_xu_ab.jsonl``, one a variant and pair loop to
+``OUT/k1_pair_loops.jsonl``. Needs a CUDA card, nvcc and cuobjdump; run
+from the root of a checkout, such as a parent commit's kernel against this
+one:
+
+    git show HEAD~1:lammps_analysis_tpu_torch/csrc/rdf_histogram.cu > _local/parent.cu
+    python3 benchmarks/k1_xu_ab.py _local/k1 file=_local/parent.cu checkout
 """
 
 from __future__ import annotations
@@ -60,6 +72,7 @@ from lammps_analysis_tpu_torch.ops.rdf import (  # noqa: E402
     rdf_histogram_reference,
     rdf_scalars,
 )
+from lammps_analysis_tpu_torch.ops.rdf_kernel import folds  # noqa: E402
 
 SOURCE = _build.CSRC / "rdf_histogram.cu"
 BUILD = _build.BUILD_DIR / "k1_variants"
@@ -75,11 +88,19 @@ BIN_FLOOR = "min(static_cast<int>(floorf(__fmul_rn(d, p.inv_bin))), p.n_bins - 1
 BIN_RD = ("(__float_as_int(__fadd_rd(fminf(__fmul_rn(d, p.inv_bin), "
           "static_cast<float>(p.n_bins - 1)), 8388608.f)) - 0x4B000000)")
 
+#: per case: species counts, frames, the cubic box's edge, cutoff, bins, and
+#: a shift of the wrapped positions in boxes, by axis
 CASES = {
-    "lj": dict(counts=[32000], n_frames=32, box=114.38, cutoff=57.09, n_bins=5709, shift=0),
+    "lj": dict(counts=[32000], n_frames=32, box=114.38, cutoff=57.09, n_bins=5709,
+               shift=(0, 0, 0)),
     "nacl": dict(counts=[16000, 16000], n_frames=32, box=104.04, cutoff=51.92, n_bins=5192,
-                 shift=0),
-    "lj-out": dict(counts=[32000], n_frames=8, box=114.38, cutoff=57.09, n_bins=5709, shift=2),
+                 shift=(0, 0, 0)),
+    "lj-global": dict(counts=[32000], n_frames=4, box=114.38, cutoff=57.09, n_bins=60000,
+                      shift=(0, 0, 0)),
+    "lj-centred": dict(counts=[32000], n_frames=8, box=114.38, cutoff=57.09, n_bins=5709,
+                       shift=(-0.5, -0.5, -0.5)),
+    "lj-out": dict(counts=[32000], n_frames=8, box=114.38, cutoff=57.09, n_bins=5709,
+                   shift=(2, 0, 0)),
 }
 
 
@@ -102,6 +123,8 @@ def variant_source(name: str) -> str:
             text = re.sub(r"= min_image\(", "= min_image_magic(", text)
         elif part == "bin-rd":
             text = _replace(text, BIN_FLOOR, BIN_RD)
+        elif part == "nofold":
+            text = _replace(text, "box_ok && fold != 0,", "false,")
         else:
             raise ValueError(f"unknown variant part {part!r}")
     return text
@@ -121,33 +144,94 @@ def build(name: str, out: pathlib.Path):
     if done.returncode != 0:
         raise RuntimeError(f"nvcc failed for {name}:\n{done.stdout}{done.stderr}")
     ptxas = [line.strip() for line in (done.stdout + done.stderr).splitlines()
-             if "registers" in line or "Compiling entry" in line]
+             if "registers" in line or "spill" in line or "Compiling entry" in line]
     cuobjdump = pathlib.Path(_build._nvcc()).parent / "cuobjdump"
     sass = subprocess.run([str(cuobjdump), "-sass", str(lib)], capture_output=True, text=True,
                           check=True).stdout
     (out / f"{tag}.sass").write_text(sass)
-    return ctypes.CDLL(str(lib)), ptxas, sass_counts(sass)
+    return ctypes.CDLL(str(lib)), ptxas, sass_counts(sass), pair_loops(sass)
+
+
+def _instructions(sass: str) -> dict:
+    """Per kernel function in a ``cuobjdump -sass`` listing: its
+    instructions as (address, opcode, operands)."""
+    functions, name = {}, None
+    for line in sass.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            name = m.group(1)
+            functions[name] = []
+            continue
+        m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)([^;]*)", line)
+        if name is not None and m:
+            functions[name].append((int(m.group(1), 16), m.group(2), m.group(3)))
+    return functions
+
+
+def pair_loops(sass: str) -> dict:
+    """Per kernel function: its innermost loops that count pairs, each as
+    ``{"instructions", "pairs", "per_pair", "route", ...}``.
+
+    A loop is the range from a backward branch's target to the branch; an
+    innermost one holds no other, and a pair loop takes square roots
+    (``MUFU``). Its pairs are its shared reductions (``ATOMS``), or its
+    global ones (``RED``) where it has none: one a pair. ``per_pair`` counts
+    the instructions a sweep issues for each pair: the loop's less the
+    ``cold`` ones, those that a forward branch inside it skips with no
+    pair's reduction among them (the species row, recomputed about once a
+    tile). A kept path counts whole, since a warp runs it whenever one of
+    its lanes keeps the pair. Its route: ``general`` where it rounds
+    (``FRND``), ``fold`` where it has at least 4 ``FMNMX`` a pair (3 folds,
+    the bin's clamp), else ``in-box``.
+    """
+    out = {}
+    for name, code in _instructions(sass).items():
+        loops = []
+        for address, op, operands in code:
+            m = re.search(r"0x([0-9a-f]+)", operands)
+            if op.startswith("BRA") and m and int(m.group(1), 16) < address:
+                loops.append((int(m.group(1), 16), address))
+        inner = [(a, b) for a, b in loops
+                 if not any((a, b) != (c, d) and a <= c and d <= b for c, d in loops)]
+        found = []
+        for a, b in sorted(inner):
+            body = [(address, op, operands) for address, op, operands in code
+                    if a <= address <= b]
+            ops = [op for _, op, _ in body]
+            c = {key: sum(op.startswith(key) for op in ops)
+                 for key in ("FRND", "FMNMX", "FADD", "FFMA", "FMUL", "MUFU", "ATOMS", "RED",
+                             "ISETP")}
+            pairs = c["ATOMS"] or c["RED"]
+            if not pairs or not c["MUFU"]:
+                continue
+            cold = set()
+            for address, op, operands in body:
+                m = re.search(r"0x([0-9a-f]+)", operands)
+                if op.startswith("BRA") and m and address < int(m.group(1), 16) <= b:
+                    skipped = [x for x in body if address < x[0] < int(m.group(1), 16)]
+                    if not any(x[1].startswith(("ATOMS", "RED")) for x in skipped):
+                        cold.update(x[0] for x in skipped)
+            route = ("general" if c["FRND"] else
+                     "fold" if c["FMNMX"] >= 4 * pairs else "in-box")
+            found.append(dict(start=hex(a), end=hex(b), instructions=len(ops), cold=len(cold),
+                              pairs=pairs, per_pair=(len(ops) - len(cold)) / pairs,
+                              route=route, **c))
+        if found:
+            out[name] = found
+    return out
 
 
 def sass_counts(sass: str) -> dict:
     """Per kernel function in a ``cuobjdump -sass`` listing: instructions in
     all, those of the XU (``FRND``, ``F2I``, ``MUFU``), the shared atomics
     (``ATOMS``) and the global ones (``RED``, ``ATOMG``)."""
-    counts, name = {}, None
-    for line in sass.splitlines():
-        m = re.match(r"\s*Function : (\S+)", line)
-        if m:
-            name = m.group(1)
-            counts[name] = dict(total=0, FRND=0, F2I=0, MUFU=0, ATOMS=0, RED=0)
-            continue
-        m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)", line)
-        if name is None or not m:
-            continue
-        op, c = m.group(1), counts[name]
-        c["total"] += 1
-        for key in ("FRND", "F2I", "MUFU", "ATOMS"):
-            c[key] += op.startswith(key)
-        c["RED"] += op.startswith(("RED.", "ATOMG"))
+    counts = {}
+    for name, code in _instructions(sass).items():
+        ops = [op for _, op, _ in code]
+        counts[name] = dict(total=len(ops),
+                            **{key: sum(op.startswith(key) for op in ops)
+                               for key in ("FRND", "F2I", "MUFU", "ATOMS")},
+                            RED=sum(op.startswith(("RED.", "ATOMG")) for op in ops))
     return counts
 
 
@@ -157,16 +241,20 @@ def make_case(c: dict, seed: int):
     n = sum(c["counts"])
     pos = np.zeros((c["n_frames"], n_pad, 3), np.float32)
     pos[:, :n] = rng.uniform(0.0, 1.0, (c["n_frames"], n, 3)) * c["box"]
-    pos = pos.astype(np.float32)
-    pos[:, :n, 0] += np.float32(c["shift"] * c["box"])
+    pos[:, :n] += (np.float32(c["box"]) * np.float32(c["shift"])).astype(np.float32)
     return (torch.from_numpy(pos).cuda(), torch.from_numpy(sid).cuda())
 
 
-def launcher(lib: ctypes.CDLL, new_interface: bool, pos, sid, c: dict, word):
+def interface(source: str) -> int:
+    """K1's C interface in ``source``: 2 takes both sweep words and the
+    fold, 1 the general-sweep word alone, 0 neither."""
+    return 2 if "unfolded_sweeps" in source else 1 if "general_sweeps" in source else 0
+
+
+def launcher(lib: ctypes.CDLL, version: int, pos, sid, c: dict, words):
     fn = lib.rdf_histogram_launch
-    n_ptr = 4 if new_interface else 3
-    fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int64] * 6 + [ctypes.c_float] * 8
-                   + [ctypes.c_void_p])
+    fn.argtypes = ([ctypes.c_void_p] * (3 + version) + [ctypes.c_int64] * 6
+                   + [ctypes.c_float] * 8 + [ctypes.c_int] * (version == 2) + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     n_species = len(c["counts"])
     box = (c["box"],) * 3
@@ -176,14 +264,14 @@ def launcher(lib: ctypes.CDLL, new_interface: bool, pos, sid, c: dict, word):
     out = torch.zeros((n_pairs, c["n_bins"]), dtype=torch.int64, device="cuda")
     n_frames, n_atoms, _ = pos.shape
     ptrs = [pos.data_ptr(), sid.data_ptr(), out.data_ptr()]
-    if new_interface:
-        ptrs.append(word.data_ptr())
+    ptrs += [words[k].data_ptr() for k in range(version)]
+    fold = [int(folds(box, c["cutoff"], c["n_bins"]))] * (version == 2)
     stream = torch.cuda.current_stream().cuda_stream
 
     def launch():
         out.zero_()
         err = fn(*ptrs, n_frames, n_atoms, n_species, c["n_bins"], 0, n_atoms,
-                 bx, by, bz, ibx, iby, ibz, t, inv_bin, stream)
+                 bx, by, bz, ibx, iby, ibz, t, inv_bin, *fold, stream)
         if err != 0:
             raise RuntimeError(f"launch failed: CUDA error {err}")
         return out
@@ -209,18 +297,29 @@ def main(argv: list[str]) -> int:
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True).stdout.strip()
     print(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}", flush=True)
-    libs = {}
+    libs, loop_lines = {}, []
     for name in names:
         try:
-            lib, ptxas, counts = build(name, out)
+            lib, ptxas, counts, loops = build(name, out)
         except Exception as exc:  # noqa: BLE001 - report and go on with the others
             print(f"[build] {name}: FAILED {exc}", flush=True)
             continue
-        libs[name] = (lib, "general_sweeps" in variant_source(name))
+        libs[name] = (lib, interface(variant_source(name)))
         print(f"[build] {name}: " + " | ".join(ptxas), flush=True)
         for fn, c in counts.items():
             if "rdf_histogram_kernel" in fn:
                 print(f"[sass] {name} {fn}: {json.dumps(c)}", flush=True)
+        for fn, found in loops.items():
+            for loop in found:
+                loop_lines.append(dict(variant=name, function=fn, **loop))
+                print(f"[loop] {name} {fn}: {loop['route']} {loop['instructions']} "
+                      f"instructions ({loop['cold']} cold), {loop['pairs']} pairs, "
+                      f"{loop['per_pair']:.2f} a pair "
+                      f"{json.dumps({k: loop[k] for k in ('FMNMX', 'FADD', 'FFMA', 'FMUL', 'ISETP')})}",
+                      flush=True)
+    with open(out / "k1_pair_loops.jsonl", "w") as f:
+        for line in loop_lines:
+            f.write(json.dumps(line) + "\n")
     lines = []
     for case_name, c in CASES.items():
         pos, sid = make_case(c, seed=20 + len(lines))
@@ -229,27 +328,29 @@ def main(argv: list[str]) -> int:
         n = sum(c["counts"])
         pair_tests = c["n_frames"] * n * (n - 1) / 2
         runs = {}
-        for name, (lib, new) in libs.items():
-            if c["shift"] and "rint-magic" in name:
+        for name, (lib, version) in libs.items():
+            if any(c["shift"]) and "rint-magic" in name:
                 continue  # the probe is exact on wrapped positions alone
-            word = torch.zeros(1, dtype=torch.int64, device="cuda")
-            launch = launcher(lib, new, pos, sid, c, word)
+            words = torch.zeros(2, dtype=torch.int64, device="cuda")
+            launch = launcher(lib, version, pos, sid, c, words)
             equal = torch.equal(launch(), plain)
             torch.cuda.synchronize()
-            runs[name] = dict(launch=launch, equal=equal, word=word, ms=[])
+            sweeps = [int(w) for w in words.tolist()]
+            runs[name] = dict(launch=launch, equal=equal, sweeps=sweeps, ms=[])
         order = list(runs)
         for rnd in range(6):
             for name in (order if rnd % 2 == 0 else order[::-1]):
                 runs[name]["ms"].append(time_ms(runs[name]["launch"]))
         for name, r in runs.items():
             line = dict(case=case_name, variant=name, equal=r["equal"],
-                        general_sweeps=int(r["word"].item()), ms=r["ms"],
+                        general_sweeps=r["sweeps"][0], unfolded_sweeps=r["sweeps"][1], ms=r["ms"],
                         min_ms=min(r["ms"]), median_ms=statistics.median(r["ms"]),
                         gpairs_per_s=pair_tests / min(r["ms"]) / 1e6, card=card)
             lines.append(line)
             print(f"[time] {case_name} {name}: equal={r['equal']} min {line['min_ms']:.4f} "
                   f"median {line['median_ms']:.4f} ms, {line['gpairs_per_s']:.1f} G pairs/s, "
-                  f"general sweeps {line['general_sweeps']}", flush=True)
+                  f"general sweeps {line['general_sweeps']}, unfolded "
+                  f"{line['unfolded_sweeps']} (one launch)", flush=True)
         del pos, sid, plain, runs
         torch.cuda.empty_cache()
     with open(out / "k1_xu_ab.jsonl", "w") as f:

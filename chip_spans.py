@@ -23,7 +23,10 @@ From the root of a checkout, on a machine with a CUDA card. Runs the cell's
 * ``k1_general_sweeps_per_call``: K1's j-chunk sweeps that took the general
   sequences (``ops/rdf_kernel.py::general_sweeps``, a word on the device,
   read before and after the traced calls as ``k1.general_sweeps``) per call
-  (``None`` without a K1 launch).
+  (``None`` without a K1 launch);
+* ``k1_unfolded_sweeps_per_call``: K1's j-chunk sweeps that took the in-box
+  sequences without the fold (``ops/rdf_kernel.py::unfolded_sweeps``, read
+  as ``k1.unfolded_sweeps`` alike) per call (``None`` without a K1 launch).
 
 The spans are mapped onto the profiler's clock by the ``call`` spans'
 ``record_function`` twins among the profiler's events. With spans on, each
@@ -106,6 +109,8 @@ def readings(trace, log, events, delta, n_calls: int, attempts: int = 1) -> dict
             delta["k1.pair_rows"] / delta["k1.launches"] if delta["k1.launches"] else None,
         "k1_general_sweeps_per_call":
             delta["k1.general_sweeps"] / n_calls / attempts if delta["k1.launches"] else None,
+        "k1_unfolded_sweeps_per_call":
+            delta["k1.unfolded_sweeps"] / n_calls / attempts if delta["k1.launches"] else None,
     }
 
 
@@ -133,11 +138,13 @@ def main(argv=None) -> int:
             made.append(1)
             call()
 
-        before, general = profiling.counters.copy(), rdf_kernel.general_sweeps()
+        before = profiling.counters.copy()
+        general, unfolded = rdf_kernel.general_sweeps(), rdf_kernel.unfolded_sweeps()
         with profiling.tracing() as log:
             trace = profile_calls(counted, n_calls, attempts)
         delta = profiling.counters - before
         delta["k1.general_sweeps"] = rdf_kernel.general_sweeps() - general
+        delta["k1.unfolded_sweeps"] = rdf_kernel.unfolded_sweeps() - unfolded
         seen.update(trace=trace, log=list(log), delta=delta,
                     n_calls=n_calls, attempts=len(made) // n_calls)
         return trace

@@ -15,12 +15,15 @@ launch's species-pair rows of the histogram.
 The kernel takes its in-box sequences (the minimum image and the bin on the
 FP32 and ALU pipes, ``csrc/rdf_histogram.cu``) wherever every atom of a
 warp's tile and j-chunk lies within one box edge of the origin, and its
-general ones elsewhere. It adds the j-chunk sweeps that took the general
-sequences into one int64 word per device, which the wrapper allocates at
-the first launch there and never clears: ``general_sweeps(device)`` reads
-it (it synchronises: for tests and ``chip_spans.py``, never the call
-path), and readers take differences. Wrapped coordinates, in ``[0, box)``,
-never take the general sequences.
+general ones elsewhere. Where they all lie in ``[0, box]`` and ``folds``
+holds, it folds the minimum image as well: ``min(|dx|, box - |dx|)``. It
+adds the j-chunk sweeps that took the general sequences, and those that
+took the in-box ones unfolded, into two int64 words per device, which the
+wrapper allocates at the first launch there and never clears:
+``general_sweeps(device)`` and ``unfolded_sweeps(device)`` read them (they
+synchronise: for tests and ``chip_spans.py``, never the call path), and
+readers take differences. Wrapped coordinates, in ``[0, box)``, under a
+cutoff below half the smallest edge, take neither.
 """
 
 from __future__ import annotations
@@ -30,6 +33,7 @@ import functools
 import threading
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from .. import _build
@@ -64,10 +68,10 @@ class Layout(NamedTuple):
 def _library() -> ctypes.CDLL:
     lib = _build.load_library()
     lib.rdf_histogram_launch.argtypes = (
-        [ctypes.c_void_p] * 4
+        [ctypes.c_void_p] * 5
         + [ctypes.c_int64] * 6
         + [ctypes.c_float] * 8
-        + [ctypes.c_void_p]
+        + [ctypes.c_int, ctypes.c_void_p]
     )
     lib.rdf_histogram_launch.restype = ctypes.c_int
     lib.rdf_histogram_layout.argtypes = [ctypes.c_int64, ctypes.POINTER(ctypes.c_int)]
@@ -77,9 +81,10 @@ def _library() -> ctypes.CDLL:
     return lib
 
 
-#: the general-sweep word of each CUDA device, by device index
-_general_words: dict[int, torch.Tensor] = {}
-_general_words_lock = threading.Lock()
+#: the sweep words of each CUDA device, by device index: the general sweeps,
+#: then the unfolded ones
+_sweep_words: dict[int, torch.Tensor] = {}
+_sweep_words_lock = threading.Lock()
 
 
 def _device_index(device) -> int:
@@ -87,23 +92,56 @@ def _device_index(device) -> int:
     return device.index if device.index is not None else torch.cuda.current_device()
 
 
-def _general_word(device: torch.device) -> torch.Tensor:
+def _sweep_words_of(device: torch.device) -> torch.Tensor:
     index = _device_index(device)
-    with _general_words_lock:
-        if index not in _general_words:
-            _general_words[index] = torch.zeros(1, dtype=torch.int64, device=device)
-        return _general_words[index]
+    with _sweep_words_lock:
+        if index not in _sweep_words:
+            _sweep_words[index] = torch.zeros(2, dtype=torch.int64, device=device)
+        return _sweep_words[index]
+
+
+def _sweeps(device, which: int) -> int:
+    words = _sweep_words.get(_device_index(device))
+    if words is None:
+        return 0
+    torch.cuda.synchronize(device)
+    return int(words[which].item())
 
 
 def general_sweeps(device="cuda") -> int:
     """The j-chunk sweeps of K1's warps on ``device`` that took the general
     sequences since the process began (0 before the first launch there).
     Synchronises the device."""
-    word = _general_words.get(_device_index(device))
-    if word is None:
-        return 0
-    torch.cuda.synchronize(device)
-    return int(word.item())
+    return _sweeps(device, 0)
+
+
+def unfolded_sweeps(device="cuda") -> int:
+    """The j-chunk sweeps of K1's warps on ``device`` that took the in-box
+    sequences without the fold since the process began: their atoms lay
+    within one box edge of the origin but not all in ``[0, box]``, or
+    ``folds`` did not hold. Synchronises the device."""
+    return _sweeps(device, 1)
+
+
+def folds(box, cutoff: float, n_bins: int) -> bool:
+    """Whether K1 may fold the minimum image of a histogram with these 3
+    box edges, cutoff and bins.
+
+    On the edges and cutoff rounded to float32, as the kernel gets them: the
+    cutoff at most ``(1 - 2^-16)`` times half the smallest edge, every edge
+    in ``[2^-60, 2^100]`` and ``n_bins <= 2^22``. Folding picks ``|dx|`` or
+    ``box - |dx|`` otherwise than the rounded minimum image only where both
+    lie within a few ulps of half the edge; under this cutoff the
+    component's square alone then exceeds the threshold, so the pair is
+    rejected either way. The lower edge keeps that square a normal float.
+    """
+    edges = [float(np.float32(b)) for b in box]
+    cut = float(np.float32(cutoff))
+    return (
+        n_bins <= 2**22
+        and all(2.0**-60 <= b <= 2.0**100 for b in edges)
+        and cut <= (1 - 2.0**-16) * min(edges) / 2
+    )
 
 
 def _check(positions, species_id, box, cutoff, n_bins, n_species) -> None:
@@ -196,11 +234,13 @@ def rdf_histogram(
             copies = lib.rdf_histogram_layout(n_pairs * n_bins, None)
             if copies < 0:
                 raise RuntimeError("rdf_histogram: could not query the device's occupancy")
+            words = _sweep_words_of(positions.device)
             err = lib.rdf_histogram_launch(
                 positions.data_ptr(), species_id.data_ptr(), out.data_ptr(),
-                _general_word(positions.device).data_ptr(),
+                words[0].data_ptr(), words[1].data_ptr(),
                 n_frames, n_atoms, n_species, n_bins, r0, r1,
                 bx, by, bz, ibx, iby, ibz, threshold, inv_bin,
+                int(folds((bx, by, bz), cut, n_bins)),
                 torch.cuda.current_stream(positions.device).cuda_stream,
             )
         if err != 0:

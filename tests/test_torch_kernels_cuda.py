@@ -7,7 +7,12 @@ warps resident on an SM) must equal ``rdf_histogram_reference`` bin for bin,
 by its in-box sequences and by its general ones (coordinates beyond a box,
 warps split between the two, ties of the rounding and the box's edge, a
 bin clamped to ``n_bins - 1``, more than 2^22 bins), each with the count of
-sweeps that took the general sequences (``rdf_kernel.general_sweeps``);
+sweeps that took the general sequences (``rdf_kernel.general_sweeps``),
+and by its folded minimum image in every layout at 1 and 3 species
+(wrapped positions fold; a centred box, a span above the box and a cutoff at
+half the edge take the in-box sequences, counted by
+``rdf_kernel.unfolded_sweeps``; a shape two boxes out the general ones; row
+stripes add up to the whole);
 both routes of the neighbor extract (the sweep ``csrc/adf_neighbor_extract.cu``
 and the cell lists ``csrc/adf_neighbor_cells.cu``) must equal
 ``neighbor_extract_reference`` exactly (the binned route on every row whose
@@ -115,6 +120,14 @@ def test_lj_shape_takes_a_layout_of_at_least_32_resident_warps(cuda):
     moved = {name: n for name, n in (counters - before).items() if name.startswith("k1.")}
     assert moved == {"k1.launches": 1, LAYOUT_COUNTER[layout.mode]: 1, "k1.pair_rows": 1}
     assert torch.equal(h_kernel, rdf_histogram_reference(*args))
+
+
+@pytest.mark.parametrize("n_species, n_bins, blocks", [(1, 5709, 6), (2, 5192, 3)],
+                         ids=["lj_melt_32k", "nacl_melt_32k"])
+def test_benchmark_shapes_keep_their_resident_blocks(cuda, n_species, n_bins, blocks):
+    """The RDF cells' histograms (MDSuite's default bins) keep one copy a
+    block and the blocks an SM that 40 registers a thread leave them."""
+    assert rdf_kernel.histogram_layout(n_species, n_bins) == ("block", 1, blocks)
 
 
 def test_kernel_treats_out_of_range_species_as_padding(cuda):
@@ -239,6 +252,66 @@ def test_kernel_past_2_22_bins_takes_the_general_sequences(cuda, n_bins, general
     h_kernel, sweeps = _general_sweeps_of(*args)
     assert (sweeps > 0) == general
     assert torch.equal(h_kernel, rdf_histogram_reference(*args))
+
+
+def _sweeps_of(*args, rows=None):
+    """K1's histogram of ``args`` and the j-chunk sweeps of its launch that
+    took the general sequences and the in-box ones unfolded."""
+    general, unfolded = rdf_kernel.general_sweeps(), rdf_kernel.unfolded_sweeps()
+    h = rdf_kernel.rdf_histogram(*args, rows=rows)
+    return h, rdf_kernel.general_sweeps() - general, rdf_kernel.unfolded_sweeps() - unfolded
+
+
+#: histogram words (species-pair rows x bins) that take each layout
+ROUTE_WORDS = {"warp": 450, "shared4": 1500, "shared2": 3000, "block": 15000, "global": 60000}
+#: per placement: the box, the cutoff, a shift of the wrapped positions in
+#: boxes, and the route every sweep takes
+PLACEMENTS = {
+    "wrapped": ((12.0, 13.0, 14.0), 5.9, (0.0, 0.0, 0.0), "fold"),
+    "centred": ((12.0, 13.0, 14.0), 5.9, (-0.5, -0.5, -0.5), "in-box"),
+    "span-above-box": ((12.0, 13.0, 14.0), 5.9, None, "in-box"),
+    "two-boxes-out": ((114.38, 114.38, 114.38), 57.09, (2.0, 0.0, 0.0), "general"),
+    "cutoff-half-edge": ((12.0, 13.0, 14.0), 6.0, (0.0, 0.0, 0.0), "in-box"),
+    "stripes": ((12.0, 13.0, 14.0), 5.9, (0.0, 0.0, 0.0), "fold"),
+}
+
+
+@pytest.mark.parametrize("placement", list(PLACEMENTS))
+@pytest.mark.parametrize("n_species", [1, 3])
+@pytest.mark.parametrize("mode", list(ROUTE_WORDS))
+def test_kernel_routes_match_plain_in_every_layout(cuda, mode, n_species, placement):
+    """Wrapped positions fold every sweep; a centred box, positions in
+    ``[-b, b]`` (a span above ``b``) and a cutoff at half the smallest edge
+    take the in-box sequences; LJ's box moved two boxes out the general
+    ones. The counters say which; the counts are the plain version's bin for
+    bin, and row stripes add up to the whole."""
+    box, cutoff, shift, route = PLACEMENTS[placement]
+    counts = [1300] if n_species == 1 else [500, 450, 350]
+    n_bins = ROUTE_WORDS[mode] // (n_species * (n_species + 1) // 2)
+    pos, sid = _case(counts, 2, box, seed=46 + n_species, device=cuda)
+    n = sum(counts)
+    edges = torch.tensor(box, dtype=torch.float32, device=cuda)
+    if shift is None:
+        pos[:, :n] = pos[:, :n] * 2 - edges
+    else:
+        pos[:, :n] += torch.tensor(shift, dtype=torch.float32, device=cuda) * edges
+    args = (pos, sid, box, cutoff, n_bins, n_species)
+    assert rdf_kernel.folds(box, cutoff, n_bins) == (placement != "cutoff-half-edge")
+    assert rdf_kernel.histogram_mode(n_species, n_bins) == mode
+    h_kernel, general, unfolded = _sweeps_of(*args)
+    assert (general > 0, unfolded > 0) == {"fold": (False, False), "in-box": (False, True),
+                                           "general": (True, False)}[route]
+    h_plain = rdf_histogram_reference(*args)
+    assert int(h_plain.sum()) > 0
+    assert torch.equal(h_kernel, h_plain)
+    if placement == "stripes":
+        total = torch.zeros_like(h_plain)
+        for rows in ((0, 300), (300, 900), (900, pos.shape[1])):
+            stripe, general, unfolded = _sweeps_of(*args, rows=rows)
+            assert (general, unfolded) == (0, 0)
+            assert torch.equal(stripe, rdf_histogram_reference(*args, rows=rows))
+            total += stripe
+        assert torch.equal(total, h_plain)
 
 
 # ---------------------------------------------------------------- ADF, K2 and K3

@@ -107,6 +107,24 @@ def test_k1_general_sweeps_per_call():
     assert r["k1_general_sweeps_per_call"] is None
 
 
+def test_k1_unfolded_sweeps_per_call():
+    """K1's sweeps by the in-box sequences without the fold per call over
+    every profiler attempt, beside the general ones; 0 where every sweep
+    folded, ``None`` without a launch."""
+    trace = Trace(n_calls=2, window=(0.0, 1000.0), launches=0, device=[])
+    log = [_span(name, s + SHIFT, e + SHIFT) for name, s, e in SPANS]
+    events = [_event("call", 5.0), _event("call", 505.0)]
+    delta = collections.Counter({"k1.launches": 6, "k1.unfolded_sweeps": 42,
+                                 "k1.general_sweeps": 6})
+    r = chip_spans.readings(trace, log, events, delta, n_calls=2, attempts=3)
+    assert (r["k1_unfolded_sweeps_per_call"], r["k1_general_sweeps_per_call"]) == (7, 1)
+    delta = collections.Counter({"k1.launches": 6})
+    r = chip_spans.readings(trace, log, events, delta, n_calls=2, attempts=3)
+    assert (r["k1_unfolded_sweeps_per_call"], r["k1_general_sweeps_per_call"]) == (0, 0)
+    r = chip_spans.readings(trace, log, events, collections.Counter({"rdf.batches": 2}), n_calls=2)
+    assert r["k1_unfolded_sweeps_per_call"] is None
+
+
 @pytest.mark.parametrize("lags, expected", [
     ([3.0, 3.0, 4.0], 3.0),  # entering the record_function range costs a few us
     ([2.0, 3.0, 90.0], 3.0),  # one twin entered late does not move the offset
