@@ -22,14 +22,16 @@ CONTROL_DTYPE = "bfloat16"
 
 
 def readings(cell, seed: int, device: str) -> dict:
-    """Each number of ``cell``'s judge for the control on ``seed``'s inputs."""
+    """Each number of ``cell``'s judge for the control on ``seed``'s inputs:
+    both sides receive the generator's output as it returned it (the
+    positions, or a mapping of named properties)."""
     import torch
 
-    positions = cell.generator().generate(cell.config, seed, device)
+    inputs = cell.generator().generate(cell.config, seed, device)
     reference = cell.reference()
     args = cell.traffic["args"]
-    ref_answer, work = reference.compute(positions, cell.config, args)
-    control, _ = reference.compute(positions, cell.config, args,
+    ref_answer, work = reference.compute(inputs, cell.config, args)
+    control, _ = reference.compute(inputs, cell.config, args,
                                    dtype=getattr(torch, CONTROL_DTYPE))
     return reference.judge(control, ref_answer, work)
 

@@ -9,7 +9,12 @@ device's busy time over the window is taken from the profiler's CUDA
 activity (``trace.DeviceClock``), armed in set-up by the warm call. After
 the window the answer is read back from the results DB by an unforced
 call (a cache hit), the program's state is freed, and the plain reference
-works the answer out again from the generated positions, on the device.
+works the answer out again from the generated inputs, on the device.
+
+A configuration's generator returns the positions ``(F, N, 3)``, or a
+mapping from the port's property names (``Positions`` and, say,
+``Velocities``) to such tensors; every property is ingested, and the
+reference receives the generator's output in the form it was returned.
 """
 
 from __future__ import annotations
@@ -22,8 +27,8 @@ import sys
 import tempfile
 import time
 import traceback
+from collections.abc import Mapping
 
-import numpy as np
 import torch
 
 from portbench import spec, trace as tracing
@@ -54,19 +59,23 @@ def call_stats(walls: list, window_s: float) -> dict:
     return {"call_ms": 1e3 * window_s / len(walls), "call_p95_ms": 1e3 * p95}
 
 
-def ingest(root: str, config: dict, positions: np.ndarray):
-    """An experiment of ``config`` holding ``positions`` (F, N, 3), ingested
-    through the program's ``ScriptInput`` path into its npy store."""
+def ingest(root: str, config: dict, properties):
+    """An experiment of ``config`` holding ``properties``, ingested through
+    the program's ``ScriptInput`` path into its npy store: the positions
+    ``(F, N, 3)``, or a mapping from property names to such arrays, each
+    stored under its name for every species."""
     import lammps_analysis_tpu_torch as lt
     from lammps_analysis_tpu_torch.database import (
         PropertyInfo, SpeciesInfo, TrajectoryChunkData, TrajectoryMetadata,
     )
     from lammps_analysis_tpu_torch.file_io import ScriptInput
 
-    prop = PropertyInfo("Positions", 3)
+    if not isinstance(properties, Mapping):
+        properties = {"Positions": properties}
+    props = [PropertyInfo(name, 3) for name in properties]
     names = list(config["species"])
-    species = [SpeciesInfo(name, config["species"][name], [prop]) for name in names]
-    n_frames = positions.shape[0]
+    species = [SpeciesInfo(name, config["species"][name], props) for name in names]
+    n_frames = properties["Positions"].shape[0]
     meta = TrajectoryMetadata(
         n_configurations=n_frames, species_list=species, box_l=[config["box_length"]] * 3,
         sample_rate=config["sample_rate"], temperature=config["temperature"],
@@ -75,7 +84,8 @@ def ingest(root: str, config: dict, positions: np.ndarray):
     offset = 0
     for name in names:
         n = config["species"][name]
-        chunk.attach_data(positions[:, offset:offset + n], name, "Positions")
+        for prop, array in properties.items():
+            chunk.attach_data(array[:, offset:offset + n], name, prop)
         offset += n
     project = lt.Project(name="portbench", storage_path=root)
     exp = project.add_experiment(
@@ -154,18 +164,21 @@ class Run:
         lt.config.device = self.device
         t = self._phase("import", self.started)
         # made on the device, kept on the host only: the window's memory is the program's
-        host_positions = self.cell.generator().generate(
-            self.cell.config, self.seed, self.device).cpu().numpy()
+        generated = self.cell.generator().generate(self.cell.config, self.seed, self.device)
+        tensor = not isinstance(generated, Mapping)  # the reference is handed this form
+        host = {name: array.cpu().numpy()
+                for name, array in ({"Positions": generated} if tensor else generated).items()}
+        del generated
         t = self._phase("generate", t)
         tmp = tempfile.TemporaryDirectory(prefix="portbench-")
         try:
-            return self._run(host_positions, tmp.name, t, cuda)
+            return self._run(host, tensor, tmp.name, t, cuda)
         finally:
             tmp.cleanup()
 
-    def _run(self, host_positions, root, t, cuda) -> dict:
+    def _run(self, host, tensor, root, t, cuda) -> dict:
         traffic = self.cell.traffic
-        exp = ingest(root, self.cell.config, host_positions)
+        exp = ingest(root, self.cell.config, host)
         t = self._phase("ingest", t)
         self._call(exp, force=False)  # builds the kernels at first use; runs dependencies
         t = self._phase("first_call", t)
@@ -212,9 +225,10 @@ class Run:
             torch.cuda.empty_cache()
 
         t_ref = time.perf_counter()
-        positions = torch.from_numpy(host_positions).to(self.device)
+        inputs = {name: torch.from_numpy(array).to(self.device) for name, array in host.items()}
         reference = self.cell.reference()
-        ref_answer, work = reference.compute(positions, self.cell.config, traffic["args"])
+        ref_answer, work = reference.compute(inputs["Positions"] if tensor else inputs,
+                                             self.cell.config, traffic["args"])
         numbers = {}
         for answer in answers:
             for name, value in reference.judge(answer.data_dict, ref_answer, work).items():
@@ -229,7 +243,7 @@ class Run:
 
         metrics, breakdown = {}, None
         if self.trace:
-            ctx = {"work": work, "positions": positions, "config": self.cell.config}
+            ctx = {"work": work, "positions": inputs["Positions"], "config": self.cell.config}
             for metric in self.cell.per_layer:
                 value = spec.load_module("metrics", metric["name"]).read(trace, ctx)
                 if value is not None:
