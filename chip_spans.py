@@ -27,6 +27,16 @@ From the root of a checkout, on a machine with a CUDA card. Runs the cell's
 * ``k1_unfolded_sweeps_per_call``: K1's j-chunk sweeps that took the in-box
   sequences without the fold (``ops/rdf_kernel.py::unfolded_sweeps``, read
   as ``k1.unfolded_sweeps`` alike) per call (``None`` without a K1 launch).
+* ``acf_windows_per_call``, ``acf_batches_per_call``,
+  ``acf_sequences_per_call``: the counters ``acf.windows``, ``acf.batches``
+  and ``acf.sequences`` per call, the windowed FFT ACF's windows, FFT
+  batches and sequences (windows x particles x components);
+* ``acf_batch_ms_per_call``: the union of ``acf.batch`` spans per call, the
+  host's time in the ACF's FFT batches;
+* ``gk_integrate_ms_per_call``: the union of ``gk.integrate`` spans per
+  call, the GK calculators' host integrals and SEM;
+* ``trafo_frames_per_call``: the counter ``trafo.frames`` per call, frames
+  a transformation appended (0 where the calls find their inputs stored).
 
 The spans are mapped onto the profiler's clock by the ``call`` spans'
 ``record_function`` twins among the profiler's events. With spans on, each
@@ -111,6 +121,11 @@ def readings(trace, log, events, delta, n_calls: int, attempts: int = 1) -> dict
             delta["k1.general_sweeps"] / n_calls / attempts if delta["k1.launches"] else None,
         "k1_unfolded_sweeps_per_call":
             delta["k1.unfolded_sweeps"] / n_calls / attempts if delta["k1.launches"] else None,
+        **{f"acf_{what}_per_call": delta[f"acf.{what}"] / n_calls / attempts
+           for what in ("windows", "batches", "sequences")},
+        "acf_batch_ms_per_call": ms_per_call(lambda name: name == "acf.batch"),
+        "gk_integrate_ms_per_call": ms_per_call(lambda name: name == "gk.integrate"),
+        "trafo_frames_per_call": delta["trafo.frames"] / n_calls / attempts,
     }
 
 

@@ -7,7 +7,8 @@ with the same arguments, cache key and result layout: per-window biased VACF
 split over the default mesh by ``sharded_windowed_acf``), unit scaling to
 m^2/s^2, the reference's ``n_windows * (n_particles + 1)`` normalisation,
 D = (1/3) * cumulative-trapezoid integral at ``integration_range - 1``, SEM
-over per-window integrals. The ACF sums accumulate in float64 on the host.
+over per-window integrals. The ACF sums accumulate in float64 on the host;
+the integrals and the SEM run in the span ``gk.integrate``.
 """
 
 from __future__ import annotations
@@ -20,7 +21,9 @@ from scipy.integrate import cumulative_trapezoid
 
 from ..database.properties import mdsuite_properties as mp
 from ..memory.planner import BatchPlanner
+from ..ops.correlation import to_host
 from ..parallel.sharded_ops import sharded_windowed_acf
+from ..utils import profiling
 from .base import TrajectoryCalculator
 
 log = logging.getLogger(__name__)
@@ -103,8 +106,9 @@ class GreenKuboDiffusionCoefficients(TrajectoryCalculator):
                 s, per_window = sharded_windowed_acf(
                     slab, data_range, a["correlation_time"], budget, tau=tau
                 )
-                acf_sum += vel_scale * s.cpu().numpy()
-                w = vel_scale * per_window.cpu().numpy()
+                s, per_window = to_host(s, per_window)
+                acf_sum += vel_scale * s
+                w = vel_scale * per_window
                 if info.n_groups > 1:
                     w = w * (slab.shape[1] / n_particles)
                 if info.group == 0:
@@ -112,17 +116,18 @@ class GreenKuboDiffusionCoefficients(TrajectoryCalculator):
                 else:
                     per_window_acc[info.slab_index] += w
 
-            acf = acf_sum / count
-            sigma = cumulative_trapezoid(acf, x=times)
-            # per-window integrals for the SEM (reference :199-206)
-            sigmas = np.concatenate(
-                [
-                    cumulative_trapezoid(w, x=times, axis=1)
-                    for w in per_window_acc
-                ],
-                axis=0,
-            )
-            sigma_sem = np.std(sigmas, axis=0) / np.sqrt(len(sigmas))
+            with profiling.annotate("gk.integrate"):
+                acf = acf_sum / count
+                sigma = cumulative_trapezoid(acf, x=times)
+                # per-window integrals for the SEM (reference :199-206)
+                sigmas = np.concatenate(
+                    [
+                        cumulative_trapezoid(w, x=times, axis=1)
+                        for w in per_window_acc
+                    ],
+                    axis=0,
+                )
+                sigma_sem = np.std(sigmas, axis=0) / np.sqrt(len(sigmas))
 
             ir = min(a["integration_range"] - 1, len(sigma) - 1)
             results[sp] = {

@@ -7,7 +7,9 @@ data: it streams to ``config.device`` in window-aligned slabs
 (``_stream_property`` with one particle), the windowed ACF
 (``ops/correlation.py``, FFT batches sized from the experiment planner's
 budget) or MSD (``ops/msd.py``) runs there with float64 sums, and the
-integrals, fits and prefactors run on the host in float64.
+integrals, fits and prefactors run on the host in float64; the
+window-averaged GK estimator's integrals and SEM run in the span
+``gk.integrate``.
 
 Ports (file:line refer to MDSuite's ``mdsuite/calculators/``):
 
@@ -42,6 +44,7 @@ from scipy.integrate import cumulative_trapezoid
 
 from ..database.properties import mdsuite_properties as mp
 from ..ops import correlation, msd
+from ..utils import profiling
 from ..utils.constants import DatasetKeys
 from ..utils.fitting import fit_einstein_curve
 from ..utils.units import boltzmann_constant, elementary_charge
@@ -125,7 +128,7 @@ class _SystemWindowedCalculator(TrajectoryCalculator):
             s, per_window = correlation.windowed_acf_sum(
                 slab, a["data_range"], a["correlation_time"], budget, tau=tau
             )
-            yield s.cpu().numpy(), per_window.cpu().numpy()
+            yield correlation.to_host(s, per_window)
 
     def _series_windows_msd(self):
         """Yield per-slab ``(msd_sum (R,) float64 numpy, n_windows)``."""
@@ -196,26 +199,24 @@ class _SystemWindowedCalculator(TrajectoryCalculator):
             return self._gk_flow_reference(prefactor, acf_scale)
         times = self._handle_tau_values()  # raw sim units (reference parity)
         acf_sum = np.zeros(self.data_resolution)
-        sigmas = []
+        per_window_acc = []
         count = 0
         for s, per_window in self._series_windows_acf():
             acf_sum += acf_scale * s
-            sigmas.append(
-                cumulative_trapezoid(
-                    acf_scale * per_window,
-                    x=times, axis=1,
-                )
-            )
+            per_window_acc.append(acf_scale * per_window)
             count += per_window.shape[0]
         if count == 0:
             raise ValueError(
                 f"{self.name}: data_range {a['data_range']} exceeds the "
                 "available configurations."
             )
-        acf = acf_sum / count
-        sigma = cumulative_trapezoid(acf, x=times)
-        sigmas = np.concatenate(sigmas, axis=0)
-        sigma_sem = np.std(sigmas, axis=0) / np.sqrt(len(sigmas))
+        with profiling.annotate("gk.integrate"):
+            acf = acf_sum / count
+            sigma = cumulative_trapezoid(acf, x=times)
+            sigmas = np.concatenate(
+                [cumulative_trapezoid(w, x=times, axis=1) for w in per_window_acc], axis=0
+            )
+            sigma_sem = np.std(sigmas, axis=0) / np.sqrt(len(sigmas))
         # cumtrapz yields W-1 points; integration_range == data_range means
         # "integrate the full window" (reference trapz[:integration_range])
         ir = min(a["integration_range"] - 1, len(sigma) - 1)

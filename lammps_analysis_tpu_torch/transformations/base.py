@@ -27,6 +27,10 @@ when the accelerator link is slow; here it runs as eager torch ops on
 ``config.device``. Single-species inputs arrive in the store's dtype
 (float32); multi-species inputs keep their own dtype (float32 store data,
 float64 metadata constants), and the fluxes sum in float64.
+
+A transformation's run is the span ``trafo.<Name>``; the counter
+``trafo.frames`` counts the frames it appends, per dataset
+(``utils/profiling.py``).
 """
 
 from __future__ import annotations
@@ -41,6 +45,7 @@ import torch
 
 from ..database.properties import PropertyInfo
 from ..database.trajectory_store import join_path
+from ..utils import profiling
 from ..utils.config import get_device
 from ..utils.constants import (
     CannotFindPropertyError,
@@ -89,21 +94,22 @@ class Transformation(abc.ABC):
         Reference analog: ``SingleSpeciesTrafo.run_transformation``
         (``transformations.py:446-519``) / ``MultiSpeciesTrafo`` (:553).
         """
-        if self.multi_species:
-            self._run_multi(experiment, species or list(experiment.species))
+        with profiling.annotate(f"trafo.{type(self).__name__}"):
+            if self.multi_species:
+                self._run_multi(experiment, species or list(experiment.species))
+                experiment.refresh_property_groups()
+                return
+            for sp_name in species or list(experiment.species):
+                out_path = join_path(sp_name, self.output_property.name)
+                if (
+                    experiment.store.check_existence(out_path)
+                    and experiment.store.get_cursor(out_path)
+                    >= experiment.number_of_configurations
+                ):
+                    log.debug("%s exists for %s; skipping", out_path, sp_name)
+                    continue
+                self._transform_species(experiment, sp_name)
             experiment.refresh_property_groups()
-            return
-        for sp_name in species or list(experiment.species):
-            out_path = join_path(sp_name, self.output_property.name)
-            if (
-                experiment.store.check_existence(out_path)
-                and experiment.store.get_cursor(out_path)
-                >= experiment.number_of_configurations
-            ):
-                log.debug("%s exists for %s; skipping", out_path, sp_name)
-                continue
-            self._transform_species(experiment, sp_name)
-        experiment.refresh_property_groups()
 
     def _transform_species(self, experiment, sp_name: str):
         store = experiment.store
@@ -139,6 +145,7 @@ class Transformation(abc.ABC):
             }
             out, carry = self.transform_batch(tensors, carry)
             store.append(out_path, out.cpu().numpy())
+            profiling.count("trafo.frames", out.shape[0])
 
     def _run_multi(self, experiment, species: List[str]):
         """Every species' inputs in one batch -> ``Observables/<output>``.
@@ -183,6 +190,7 @@ class Transformation(abc.ABC):
             }
             out, carry = self.transform_batch(tensors, carry)
             store.append(out_path, out.to(torch.float32)[:, None, :].cpu().numpy())
+            profiling.count("trafo.frames", out.shape[0])
 
     # -- plumbing -------------------------------------------------------------
     @staticmethod

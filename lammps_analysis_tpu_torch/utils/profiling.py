@@ -50,6 +50,12 @@ span                       where
 ``k3``                     ``adf_kernel.adf_pairs_histogram``
 ``msd.comb``               ``msd.windowed_msd_sum``
 ``collective``             ``sharded_ops._all_reduce`` (in a process group)
+``acf.batch``              one FFT batch of ``correlation.windowed_acf_sum``
+``gk.integrate``           the host's cumulative trapezoids and SEM of the
+                           GK calculators (``GreenKuboDiffusionCoefficients``,
+                           the window-averaged system GK estimator)
+``trafo.<Name>``           ``Transformation.run_transformation`` of the
+                           transformation class ``<Name>``
 =========================  ==================================================
 
 =============================  =============================================
@@ -71,6 +77,11 @@ counter                        counts
 ``k1.plain``, ``k2.plain``,    calls of the plain torch versions
 ``k3.plain``                   (``ops/rdf.py``, ``ops/adf.py``)
 ``collectives``                collectives of the sharded ops
+``acf.windows``                windows ``windowed_acf_sum`` correlated
+``acf.batches``                its FFT batches
+``acf.sequences``              its sequences: windows x particles x
+                               components
+``trafo.frames``               frames a transformation appended, per dataset
 =============================  =============================================
 
 To see them: ``with device_trace(dir):`` writes a Chrome trace (Perfetto,

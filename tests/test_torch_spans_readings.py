@@ -4,7 +4,8 @@ the load, the bytes loaded, the device's idle time that no span but
 ``call`` covers, the GPU user annotations of live spans left out of the
 device's busy time, the spans' offset set by the ``call`` spans'
 ``record_function`` twins, the RDF's frame batches a call and K1's pair
-rows a launch, K1's sweeps by the general sequences a call; and ``k1.pair_rows``, the counter the last reads, on the
+rows a launch, K1's sweeps by the general sequences a call, the GK path's
+ACF counters and spans a call; and ``k1.pair_rows``, the counter the last reads, on the
 card (``cuda``). ``rdf.batches`` is counted by the streaming test
 (``test_torch_rdf_streaming.py``)."""
 
@@ -88,6 +89,28 @@ def test_rdf_batches_per_call_and_k1_pair_rows_per_launch():
     assert (r["rdf_batches_per_call"], r["k1_pair_rows_per_launch"]) == (4, 3)
     r = chip_spans.readings(trace, log, events, collections.Counter({"k1.plain": 2}), n_calls=2)
     assert (r["rdf_batches_per_call"], r["k1_pair_rows_per_launch"]) == (0, None)
+
+
+def test_acf_counters_and_gk_spans_per_call():
+    """The windowed ACF's windows, batches and sequences and a
+    transformation's frames per call over every profiler attempt; the host's
+    time in ``acf.batch`` and ``gk.integrate`` spans per call."""
+    trace = Trace(n_calls=2, window=(0.0, 1000.0), launches=0, device=[])
+    spans = SPANS + [("acf.batch", 120, 170), ("acf.batch", 170, 200),
+                     ("gk.integrate", 300, 330), ("gk.integrate", 900, 910)]
+    log = [_span(name, s + SHIFT, e + SHIFT) for name, s, e in spans]
+    events = [_event("call", 5.0), _event("call", 505.0)]
+    delta = collections.Counter({"acf.windows": 3612, "acf.batches": 132,
+                                 "acf.sequences": 3612 * 48000})
+    r = chip_spans.readings(trace, log, events, delta, n_calls=2, attempts=3)
+    assert (r["acf_windows_per_call"], r["acf_batches_per_call"]) == (602, 22)
+    assert r["acf_sequences_per_call"] == 602 * 48000
+    assert r["acf_batch_ms_per_call"] == pytest.approx(80 / 1e3 / 2)
+    assert r["gk_integrate_ms_per_call"] == pytest.approx(40 / 1e3 / 2)
+    assert r["trafo_frames_per_call"] == 0
+    delta = collections.Counter({"trafo.frames": 2000})
+    r = chip_spans.readings(trace, log, events, delta, n_calls=2)
+    assert (r["trafo_frames_per_call"], r["acf_batches_per_call"]) == (1000, 0)
 
 
 def test_k1_general_sweeps_per_call():
