@@ -52,6 +52,15 @@ Phases, one line each (any failure raises and the exit code is not 0):
      differ by an ulp); each line names the kernel's split
      (``pairs_histogram_route``): where the float64 histogram lives, the
      chunks of ``chunk_pairs`` pairs a center is cut into, the blocks a frame;
+   * ``[2 acf]`` the windowed ACF's pack and power-sum kernels
+     (``csrc/acf_power.cu``) at GK self-diffusion's full FFT batch (32
+     windows x 48000 sequences padded to 1024): the pack equal to the plain
+     version bit for bit, with and without its zero tail, and kept by
+     cuFFT's R2C; the power sum within 1e-12 of the plain version on every
+     bin and bit for bit from run to run; each kernel's device time beside
+     its bound, the plain version's time and the torch chain's it replaced;
+     the peak device memory after each step of one batch; one GK slab
+     through the kernels and through the old torch loop, in turns;
 3. main paths, each through ``Project`` -> in-memory ingest -> ``exp.run``,
    checked to go through its kernels and never the plain versions, to give
    the ideal gas's answer and to be a cache hit when run again, then run on
@@ -175,6 +184,7 @@ two checkouts' K1 on one card.
 and the angle kernel's one-frame launch, for an A/B of two checkouts on one
 card. ``--acf-batches`` times the windowed ACF over a 10^6-row system
 series with 32-window FFT batches and with the default ones, in turns.
+``--acf`` runs only ``[1 build]`` and ``[2 acf]``.
 ``--extract`` runs only ``[1 build]``, the neighbor extract's cases of ``[2
 extract]`` and ``[3 adf-wide]``, for an A/B of two checkouts' sweep kernels
 on one card. ``--chunks`` times
@@ -222,6 +232,9 @@ REPLACES = {
     "adf_neighbor_cells": "lammps_analysis_tpu/ops/pallas_adf.py:221",
     "adf_neighbor_extract": "lammps_analysis_tpu/ops/pallas_adf.py:221",
     "adf_pairs_histogram": "lammps_analysis_tpu/ops/pallas_adf.py:1482",
+    # no Pallas kernel: XLA ops (jnp.fft) in the JAX package
+    "acf_pack": "none: lammps_analysis_tpu/ops/correlation.py::windowed_acf_sum",
+    "acf_power_sum": "none: lammps_analysis_tpu/ops/correlation.py::windowed_acf_sum",
 }
 # each kernel record's device kernels, by a part of their symbol names
 DEVICE_KERNELS = {
@@ -229,6 +242,8 @@ DEVICE_KERNELS = {
     "adf_neighbor_cells": ("bin_atoms", "scan_counts", "scatter_atoms", "cells_extract"),
     "adf_neighbor_extract": ("neighbor_extract_kernel",),
     "adf_pairs_histogram": ("adf_pairs_kernel",),
+    "acf_pack": ("acf_pack_kernel",),
+    "acf_power_sum": ("acf_power_sum_kernel", "acf_power_combine_kernel"),
 }
 
 RECORD_OF_ROUTE = {"binned": "adf_neighbor_cells", "sweep": "adf_neighbor_extract"}
@@ -3581,7 +3596,8 @@ def kernel_record(name: str, launches: int, cases: list, main: dict, mode: str =
         "plain_ms": main["plain_ms"],
         "bound_ms": main["bound_ms"],
         "bound_by": main["bound_by"],
-        "library_ms": None,  # no single PyTorch call computes any of these
+        # no single PyTorch call computes K1-K3; the ACF kernels' torch chain
+        "library_ms": main.get("library_ms"),
         **({"floor_ms": main["floor_ms"]} if "floor_ms" in main else {}),
     }
 
@@ -3680,6 +3696,183 @@ def acf_batches() -> None:
         raise RuntimeError("acf batches: the batch size changed the result")
 
 
+#: GK self-diffusion's full FFT batch (``nacl_gk_32k.gk_diffusion``): 32
+#: windows of 500 frames every 5 over one species' 16000 ions x 3, padded
+#: to 1024; the slab holds the frames the 32 windows span
+GK_BATCH = dict(n_ions=16000, dims=3, window=500, stride=5, windows=32, fft_len=1024)
+
+
+def mib_steps(steps) -> list:
+    """``[(name, MiB)]``: the device memory's peak above what was allocated
+    before the first step, read after each ``(name, fn)`` step (the peak is
+    not reset between steps); the steps' results are kept alive until the
+    end, as a batch keeps them."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    kept, out = [], []
+    for name, fn in steps:
+        kept.append(fn(kept))
+        torch.cuda.synchronize()
+        out.append((name, (torch.cuda.max_memory_allocated() - base) / 2**20))
+    return out
+
+
+def acf_kernels_vs_plain() -> dict:
+    """``[2 acf]``: the windowed ACF's two kernels (``csrc/acf_power.cu``) at
+    GK self-diffusion's full batch, against their plain versions on the same
+    tensors (the pack bit for bit, with and without the zero tail; the power
+    within 1e-12 of every bin and bit for bit from run to run), cuFFT's R2C
+    leaving the packed buffer as it was, each kernel's device time, its
+    bound (bytes over the memory rate), the plain version's time and the
+    torch chain's it replaces (``library_ms``: the pad and strided copy that
+    ``rfft`` ran on the windows' view, timed as ``rfft`` of the view less
+    ``rfft`` of the packed buffer; the square, float64 cast and float64
+    sum); then the peak device memory after each step of one batch, torch
+    chain and kernels."""
+    from lammps_analysis_tpu_torch.ops import correlation as C
+
+    c = GK_BATCH
+    w, stride, n, fft_len = c["window"], c["stride"], c["windows"], c["fft_len"]
+    frames = (n - 1) * stride + w
+    n_seq = c["n_ions"] * c["dims"]
+    n_freq = fft_len // 2 + 1
+    x = torch.randn((frames, c["n_ions"], c["dims"]), device="cuda",
+                    generator=torch.Generator("cuda").manual_seed(2025))
+    seg = x.unfold(0, w, stride)[:n]
+    results = {}
+
+    buf = C.acf_pack(x, w, stride, 0, n, fft_len)
+    plain = C.acf_pack_reference(x, w, stride, 0, n, fft_len)
+    tail_equal = torch.equal(buf, plain)
+    buf[..., :w].zero_()
+    C.acf_pack(x, w, stride, 0, n, fft_len, out=buf)
+    reuse_equal = torch.equal(buf, plain)
+    spec = torch.fft.rfft(buf, n=fft_len, dim=-1)
+    torch.cuda.synchronize()
+    r2c_kept = torch.equal(buf, plain)
+    if not (tail_equal and reuse_equal and r2c_kept):
+        raise RuntimeError(f"acf_pack: equal to plain {tail_equal} (tail), {reuse_equal} "
+                           f"(reused buffer), buffer kept by the R2C {r2c_kept}")
+    del plain
+    pack_ms = device_ms(lambda: C.acf_pack(x, w, stride, 0, n, fft_len, out=buf), 10, "acf_pack")
+    tail_ms = device_ms(lambda: C.acf_pack(x, w, stride, 0, n, fft_len), 5, "acf_pack")
+    plain_ms = time_ms(lambda: C.acf_pack_reference(x, w, stride, 0, n, fft_len), 3)
+    fft_ms = time_ms(lambda: torch.fft.rfft(buf, n=fft_len, dim=-1), 5)
+    pad_ms = time_ms(lambda: torch.fft.rfft(seg, n=fft_len, dim=-1), 3) - fft_ms
+    pack_bytes = n * n_seq * w * 4 + frames * n_seq * 4
+    bound_ms, bound_by = bound(0.0, pack_bytes)
+    tail_bound = bound(0.0, n * n_seq * fft_len * 4 + frames * n_seq * 4)[0]
+    phase("2 acf", f"acf_pack {n} x {n_seq} x {w} -> {fft_len}: equal to plain (tail, reused buffer), "
+          f"the R2C keeps its input; kernel {pack_ms:.3f} ms into the reused buffer ({pack_bytes / pack_ms / 1e6:.0f}"
+          f" GB/s), {tail_ms:.3f} ms with the tail (bound {tail_bound:.3f}), plain {plain_ms:.3f} ms, "
+          f"the pad inside rfft {pad_ms:.3f} ms, cuFFT R2C {fft_ms:.3f} ms, bound {bound_ms:.3f} ms "
+          f"({bound_by}; {100 * bound_ms / pack_ms:.1f} % of it)")
+    results["acf_pack"] = dict(max_diff=0.0, ms=pack_ms, plain_ms=plain_ms, library_ms=pad_ms,
+                               bound_ms=bound_ms, bound_by=bound_by, tail_ms=tail_ms, fft_ms=fft_ms)
+
+    power = C.acf_power_sum(spec)
+    again = C.acf_power_sum(spec)
+    plain = C.acf_power_sum_reference(spec.clone())
+    rel = float(((power - plain).abs() / plain.abs()).max())
+    if rel > 1e-12 or not torch.equal(power, again):
+        raise RuntimeError(f"acf_power_sum: {rel:.3e} from plain, repeats {torch.equal(power, again)}")
+    del plain
+    chunks, rows = C.power_split(n, n_seq, n_freq, torch.cuda.get_device_properties(0).multi_processor_count)
+    power_ms = device_ms(lambda: C.acf_power_sum(spec), 10, "acf_power_sum")
+    plain_ms = time_ms(lambda: C.acf_power_sum_reference(spec), 3)  # squares spec again each call
+    chain_ms = time_ms(lambda: torch.sum(torch.view_as_real(spec).view(n, c["n_ions"], c["dims"], n_freq, 2)
+                                         .square_(), dim=(1, 2, 4), dtype=torch.float64), 3)
+    power_bytes = n * n_seq * n_freq * 8 + n * chunks * n_freq * 16 + n * n_freq * 8
+    bound_ms, bound_by = bound(0.0, power_bytes)
+    phase("2 acf", f"acf_power_sum {n} x {n_seq} x {n_freq}: {chunks} chunks of {rows} sequences a window, "
+          f"{rel:.2e} from plain at most, bit for bit run to run; kernel {power_ms:.3f} ms "
+          f"({power_bytes / power_ms / 1e6:.0f} GB/s), plain {plain_ms:.3f} ms, the torch chain "
+          f"(square_, float64 sum) {chain_ms:.3f} ms, bound {bound_ms:.3f} ms ({bound_by}; "
+          f"{100 * bound_ms / power_ms:.1f} % of it)")
+    results["acf_power_sum"] = dict(max_diff=rel, ms=power_ms, plain_ms=plain_ms, library_ms=chain_ms,
+                                    bound_ms=bound_ms, bound_by=bound_by)
+    del spec, buf, power, again
+    torch.cuda.empty_cache()
+
+    chain = mib_steps([
+        ("rfft of the windows' view (pad, copy, R2C)", lambda k: torch.fft.rfft(seg, n=fft_len, dim=-1)),
+        ("square_", lambda k: torch.view_as_real(k[0]).square_()),
+        ("float64 sum", lambda k: torch.sum(k[1], dim=(1, 2, 4), dtype=torch.float64)),
+    ])
+    torch.cuda.empty_cache()
+    kernels = mib_steps([
+        ("acf_pack (buffer)", lambda k: C.acf_pack(x, w, stride, 0, n, fft_len)),
+        ("rfft of the buffer (R2C)", lambda k: torch.fft.rfft(k[0], n=fft_len, dim=-1)),
+        ("acf_power_sum", lambda k: C.acf_power_sum(k[1])),
+    ])
+    torch.cuda.empty_cache()
+    for label, steps in (("torch chain", chain), ("kernels", kernels)):
+        phase("2 acf", f"one batch's peak above the slab, {label}: "
+              + "; ".join(f"after {name} {mib:.1f} MiB" for name, mib in steps))
+    results["peak_steps"] = dict(chain=chain, kernels=kernels)
+    del x, seg
+    torch.cuda.empty_cache()
+    results["slab"] = acf_slab_calls()
+    return results
+
+
+def torch_chain_acf_sum(x, window, stride, budget_bytes):
+    """``windowed_acf_sum`` as torch ops alone, the loop the two kernels
+    replaced (strided view, ``rfft`` with its own padding, ``square_``,
+    float64 ``sum``): the yardstick of ``acf_slab_calls``."""
+    from lammps_analysis_tpu_torch.ops import correlation as C
+
+    n_windows = (x.shape[0] - window) // stride + 1
+    chunk = C._auto_chunk(x.shape[1], x.shape[2], window, budget_bytes)
+    fft_len = C._next_fast_len(2 * window)
+    windows = x.unfold(0, window, stride)
+    acf_sum = torch.zeros(window, dtype=torch.float64, device=x.device)
+    for c0 in range(0, n_windows, chunk):
+        f = torch.view_as_real(torch.fft.rfft(windows[c0 : c0 + chunk], n=fft_len, dim=-1))
+        power = torch.sum(f.square_(), dim=(1, 2, 4), dtype=torch.float64)
+        acf_sum += (torch.fft.irfft(power, n=fft_len, dim=-1)[:, :window] / window).sum(0)
+    return acf_sum
+
+
+def acf_slab_calls() -> dict:
+    """``[2 acf]``: one GK self-diffusion slab (1000 frames of 16000 ions x 3,
+    101 windows in 4 batches) through ``windowed_acf_sum`` and through the
+    torch chain it replaced, in turns (chain, kernels, kernels, chain): wall
+    of each after a synchronise, and the peak device memory above the slab
+    (what sets GK D's ``peak_device_MiB``); the sums agree within 1e-6 of
+    the lag-0 value."""
+    from lammps_analysis_tpu_torch.ops import correlation as C
+
+    c = GK_BATCH
+    x = torch.randn((1000, c["n_ions"], c["dims"]), device="cuda",
+                    generator=torch.Generator("cuda").manual_seed(2026))
+    budget = int(0.6 * torch.cuda.mem_get_info()[1])
+    runs = {"chain": lambda: torch_chain_acf_sum(x, c["window"], c["stride"], budget),
+            "kernels": lambda: C.windowed_acf_sum(x, c["window"], c["stride"], budget)[0]}
+    out = {name: dict(ms=[], peak_mib=[]) for name in runs}
+    sums = {}
+    for name in ("chain", "kernels", "kernels", "chain"):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        sums[name] = runs[name]()
+        torch.cuda.synchronize()
+        out[name]["ms"].append((time.perf_counter() - t0) * 1e3)
+        out[name]["peak_mib"].append((torch.cuda.max_memory_allocated() - base) / 2**20)
+    gap = float((sums["kernels"] - sums["chain"]).abs().max() / sums["chain"][0])
+    if gap > 1e-6:
+        raise RuntimeError(f"windowed_acf_sum: {gap:.3e} of acf[0] from the torch chain")
+    for name, rec in out.items():
+        phase("2 acf", f"one GK D slab (1000 x {c['n_ions']} x {c['dims']}, 101 windows, 4 batches), {name}: "
+              f"{', '.join(f'{ms:.2f}' for ms in rec['ms'])} ms, peak above the slab "
+              f"{', '.join(f'{mib:.1f}' for mib in rec['peak_mib'])} MiB")
+    phase("2 acf", f"the sums agree within {gap:.2e} of acf[0]")
+    return out
+
+
 def k1_ab(rounds: int = 3) -> None:
     """``--k1``: K1 alone at the main path's shape (64 x 10240, 2 species x
     500 bins) and at the LJ shape (32 x 32000, 1 species x 5709 bins), each
@@ -3765,6 +3958,11 @@ def main() -> int:
         environment()
         acf_batches()
         return 0
+    if sys.argv[1:] == ["--acf"]:
+        environment()
+        build()
+        acf_kernels_vs_plain()
+        return 0
     if sys.argv[1:] == ["--extract"]:
         card = environment()
         build()
@@ -3780,6 +3978,10 @@ def main() -> int:
     adf = adf_kernels_vs_plain()
     stripes = extract_stripes()
     modes = extract_modes()
+    acf = acf_kernels_vs_plain()
+    from lammps_analysis_tpu_torch.utils.profiling import counters
+
+    acf_before = counters.copy()
     rdf_launches, _ = main_path(card)
     adf_launches, _ = adf_main_path(card)
     wide = adf_wide_path(card)
@@ -3830,6 +4032,8 @@ def main() -> int:
                         record.split(" ", 1)[1])
           for record in ("adf_neighbor_extract idx", "adf_neighbor_cells idx", "adf_neighbor_extract open",
                          "adf_neighbor_extract sorted z", "adf_neighbor_extract sorted brick")),
+        *(kernel_record(name, counters[counter] - acf_before[counter], [acf[name]], acf[name])
+          for name, counter in (("acf_pack", "acf.pack.launches"), ("acf_power_sum", "acf.power.launches"))),
     ]
     idle = [r["name"] for r in records if r["launches"] < 1]
     if idle:

@@ -81,6 +81,12 @@ counter                        counts
 ``acf.batches``                its FFT batches
 ``acf.sequences``              its sequences: windows x particles x
                                components
+``acf.pack.launches``          launches of the pack kernel
+                               (``correlation.acf_pack``), one a batch
+``acf.power.launches``         launches of the power-sum kernel
+                               (``correlation.acf_power_sum``), one a batch
+``acf.plain``                  batches whose power sum took the plain
+                               version (a CPU tensor)
 ``trafo.frames``               frames a transformation appended, per dataset
 =============================  =============================================
 

@@ -5,7 +5,12 @@ calculators, ``trafo.<Name>`` and ``trafo.frames`` in the transformation
 runner, for a GK diffusion call and a GK ionic-conductivity call at a small
 size on the CPU. Every count is exact. Also ``correlation.to_host``, the GK
 calculators' fetch of the ACF sums: on the card (``cuda``) through
-page-locked memory."""
+page-locked memory. And the three steps of an FFT batch on the CPU: the
+plain pack, ``torch.fft.rfft`` and the plain power sum compose to the
+windowed ACF's torch loop as it was before the card's kernels
+(``csrc/acf_power.cu``) took its pack and power sum, bit for bit; the plain
+power sum counts ``acf.plain`` once a batch; the power sum's split
+(``power_split``) and the checks on the kernels' inputs."""
 
 import numpy as np
 import pytest
@@ -152,3 +157,148 @@ def test_to_host_copies_from_the_card_through_page_locked_memory():
     np.testing.assert_array_equal(host_s, s.cpu().numpy())
     assert host_x.dtype == np.float64 and host_x.shape == (1501, 500)
     assert torch.from_numpy(host_x).is_pinned()
+
+
+def _loop_as_it_was(x, window, stride, budget_bytes, tau=None):
+    """The oracle: ``windowed_acf_sum``'s batch loop before the pack and the
+    power sum were split out (strided view, ``index_select``, ``rfft`` with
+    its own padding, ``square_``, float64 ``sum``)."""
+    total, n_particles, n_dims = x.shape
+    r = window if tau is None else len(tau)
+    n_windows = (total - window) // stride + 1
+    chunk = correlation._auto_chunk(n_particles, n_dims, r, budget_bytes)
+    fft_len = correlation._next_fast_len(2 * r)
+    windows = x.unfold(0, window, stride)
+    tau_idx = None if tau is None else torch.as_tensor(tau, dtype=torch.long)
+    acf_sum = torch.zeros(r, dtype=torch.float64)
+    per_window = []
+    for c0 in range(0, n_windows, chunk):
+        seg = windows[c0 : c0 + chunk]
+        if tau_idx is not None:
+            seg = seg.index_select(-1, tau_idx)
+        f = torch.view_as_real(torch.fft.rfft(seg, n=fft_len, dim=-1))
+        power = torch.sum(f.square_(), dim=(1, 2, 4), dtype=torch.float64)
+        acf = torch.fft.irfft(power, n=fft_len, dim=-1)[:, :r] / r
+        acf_sum += acf.sum(0)
+        per_window.append(acf / n_particles)
+    return acf_sum, torch.cat(per_window)
+
+
+#: (frames, particles, components, window, stride, windows a batch, lags):
+#: ragged last batches, one batch, a lag table, a system series, float64
+ACF_LOOPS = {
+    "ragged": (160, 64, 3, 32, 4, 8, None),
+    "one_batch": (160, 64, 3, 32, 4, 75, None),
+    "tau": (300, 7, 3, 50, 3, 5, [0, 1, 2, 5, 9, 20, 33, 49]),
+    "series": (2000, 1, 3, 500, 1, 5461, None),
+    "series_tau": (2000, 1, 3, 500, 1, 5461, list(range(0, 500, 7))),
+    "gk_d_batch": (700, 40, 3, 500, 5, 32, None),
+    "float64": (120, 5, 2, 20, 3, 4, [0, 3, 19]),
+}
+
+
+@pytest.mark.parametrize("case", list(ACF_LOOPS))
+def test_plain_pack_fft_and_power_compose_to_the_loop(case):
+    frames, particles, dims, window, stride, per_batch, tau = ACF_LOOPS[case]
+    dtype = torch.float64 if case == "float64" else torch.float32
+    x = torch.randn((frames, particles, dims), dtype=dtype,
+                    generator=torch.Generator().manual_seed(frames + particles))
+    r = window if tau is None else len(tau)
+    budget = per_batch * particles * dims * correlation._next_fast_len(2 * r) * 16
+    expect_sum, expect_windows = _loop_as_it_was(x, window, stride, budget, tau)
+    got_sum, got_windows = correlation.windowed_acf_sum(x, window, stride, budget, tau=tau)
+    scale = float(expect_sum[0])
+    torch.testing.assert_close(got_sum, expect_sum, rtol=0, atol=1e-7 * scale)
+    torch.testing.assert_close(got_windows, expect_windows, rtol=0,
+                               atol=1e-7 * float(expect_windows[:, 0].max()))
+    assert torch.equal(got_sum, expect_sum) and torch.equal(got_windows, expect_windows)
+
+
+def test_plain_power_sum_counts_the_batches_on_a_cpu_tensor():
+    """33 windows in 5 batches on the CPU: five plain batches, no launch."""
+    x = torch.randn((N_FRAMES, N_IONS, 3), generator=torch.Generator().manual_seed(4))
+    budget = 8 * N_IONS * 3 * 64 * 16
+    _, delta, _ = _traced(lambda: correlation.windowed_acf_sum(
+        x, DATA_RANGE, CORRELATION_TIME, budget))
+    assert delta["acf.batches"] == delta["acf.plain"] == 5
+    assert delta["acf.pack.launches"] == delta["acf.power.launches"] == 0
+
+
+@pytest.mark.parametrize("tau", [None, [0, 4, 7, 31]], ids=["lags", "tau"])
+def test_plain_pack_into_a_reused_buffer_keeps_its_zero_tail(tau):
+    """The first batch's buffer holds a later, ragged batch: its windows'
+    values are written, its tail keeps the first call's zeros, and it
+    equals a freshly padded batch."""
+    x = torch.randn((N_FRAMES, N_IONS, 3), generator=torch.Generator().manual_seed(6))
+    lags = None if tau is None else correlation.lag_table(tau, DATA_RANGE, "cpu")
+    r = DATA_RANGE if tau is None else len(tau)
+    fft_len = correlation._next_fast_len(2 * r)
+    buf = correlation.acf_pack(x, DATA_RANGE, CORRELATION_TIME, 0, 20, fft_len, lags)
+    assert buf.shape == (20, N_IONS * 3, fft_len) and not bool(buf[..., r:].any())
+    later = correlation.acf_pack(x, DATA_RANGE, CORRELATION_TIME, 20, 13, fft_len, lags, out=buf)
+    assert later.data_ptr() == buf.data_ptr() and later.shape[0] == 13
+    fresh = correlation.acf_pack_reference(x, DATA_RANGE, CORRELATION_TIME, 20, 13, fft_len, lags)
+    assert torch.equal(later, fresh)
+    windows = x.unfold(0, DATA_RANGE, CORRELATION_TIME)[20:33]
+    seg = windows if tau is None else windows[..., tau]
+    assert torch.equal(later.view(13, N_IONS, 3, fft_len)[..., :r], seg)
+
+
+#: (windows, sequences, bins, SMs) -> (chunks, rows): many chunks a window for
+#: GK self-diffusion's batch, one for a system series, and between
+POWER_SPLITS = [
+    ((32, 48000, 513, 132), (132, 364)),
+    ((5, 48000, 513, 132), (750, 64)),
+    ((1501, 3, 513, 132), (1, 3)),
+    ((1, 100, 513, 132), (1, 100)),
+    ((5, 333, 129, 132), (5, 67)),
+    ((2, 10**6, 16385, 132), (82, 12196)),
+]
+
+
+@pytest.mark.parametrize("shape, split", POWER_SPLITS, ids=lambda v: "x".join(map(str, v)))
+def test_power_split_adapts_to_the_shape(shape, split):
+    n_windows, n_seq, _, _ = shape
+    chunks, rows = correlation.power_split(*shape)
+    assert (chunks, rows) == split
+    assert (chunks - 1) * rows < n_seq <= chunks * rows
+    assert rows >= min(correlation.POWER_MIN_ROWS, n_seq)
+
+
+@pytest.mark.parametrize("tau", [[-1, 3], [0, 32], [40]], ids=["negative", "window", "past"])
+def test_lag_table_rejects_lags_outside_the_window(tau):
+    with pytest.raises(ValueError, match=r"\[0, 32\)"):
+        correlation.lag_table(tau, DATA_RANGE, "cpu")
+    with pytest.raises(ValueError):
+        correlation.windowed_acf_sum(torch.zeros((N_FRAMES, 2, 3)), DATA_RANGE, 4, 1 << 20, tau=tau)
+
+
+def _bad_pack_args():
+    x = torch.zeros((100, 4, 3))
+    return {
+        "integer_x": ((x.long(), 32, 4, 0, 2, 64), TypeError),
+        "past_the_frames": ((x, 32, 4, 11, 8, 64), ValueError),
+        "short_fft": ((x, 32, 4, 0, 2, 16), ValueError),
+        "out_shape": ((x, 32, 4, 0, 2, 64, None, torch.zeros((2, 11, 64))), ValueError),
+        "out_windows": ((x, 32, 4, 0, 3, 64, None, torch.zeros((2, 12, 64))), ValueError),
+        "out_dtype": ((x, 32, 4, 0, 2, 64, None, torch.zeros((2, 12, 64), dtype=torch.float64)),
+                      ValueError),
+        "lags_2d": ((x, 32, 4, 0, 2, 64, torch.zeros((2, 2), dtype=torch.int32)), ValueError),
+    }
+
+
+@pytest.mark.parametrize("case", list(_bad_pack_args()))
+def test_acf_pack_rejects_bad_inputs(case):
+    args, error = _bad_pack_args()[case]
+    with pytest.raises(error):
+        correlation.acf_pack(*args)
+
+
+@pytest.mark.parametrize("spec, error", [
+    (torch.zeros((2, 3, 5)), TypeError),
+    (torch.zeros((2, 3), dtype=torch.complex64), TypeError),
+    (torch.zeros((2, 5, 3), dtype=torch.complex64).transpose(1, 2), ValueError),
+], ids=["real", "2d", "strided"])
+def test_acf_power_sum_rejects_bad_inputs(spec, error):
+    with pytest.raises(error):
+        correlation.acf_power_sum(spec)

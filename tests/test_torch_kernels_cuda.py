@@ -30,6 +30,14 @@ the conductivity path and the molecular path (a small water box from a TRR,
 tolerance), the spatial distribution function (counts within the SDF's
 tolerance: ``arccos``/``atan2`` may round apart by an ulp) and the fused
 unwrap stream (on the card equal to the card's materialised run bit for bit).
+The windowed ACF's pack kernel (``csrc/acf_power.cu`` through
+``ops/correlation.py::acf_pack``) must equal ``acf_pack_reference`` exactly
+(GK self-diffusion's batch with fewer ions, a ragged last batch into a
+reused buffer, a lag table, S = 3, 5, 17 and 33), and a buffer's zero tail
+must survive a second batch and cuFFT's R2C; its power sum must agree with
+``acf_power_sum_reference`` within 1e-12 on every bin and repeat bit for
+bit; ``windowed_acf_sum`` on the card takes no plain batch and launches
+each kernel once a batch.
 The two stripe modes of the multi-device layer, K1's i-row range and K2's
 center stripe on both routes, must equal their plain versions and the rows
 of the full launch exactly; the sharded ops in a world of four ranks that
@@ -1011,3 +1019,101 @@ def test_window_staging_across_the_seam_matches_plain(cuda, sort, k_n):
     assert set(STAGED) <= set(plain[5].unique().tolist())
     assert all(torch.equal(a, b) for a, b in zip((*lists, sid_s), plain))
     assert int(overflow) == int(total.max() > bound)
+
+
+#: the windowed ACF's pack cases: (frames, particles, components, window,
+#: stride, first window, windows, lag table or None)
+ACF_PACKS = {
+    # GK self-diffusion's batch with fewer ions: R 500, stride 5, L 1024
+    "gk_d": (700, 400, 3, 500, 5, 0, 32, None),
+    # the last, ragged batch of 37 windows
+    "ragged": (700, 400, 3, 500, 5, 32, 5, None),
+    # a lag table (R 71 of a 500-frame window, L 256)
+    "tau": (700, 40, 3, 500, 5, 3, 20, list(range(0, 497, 7))),
+    # a system series: S = 3, 1501 windows side by side in the tiles
+    "s3": (2000, 1, 3, 500, 1, 0, 1501, None),
+    # S = 33, 17 and 5: a tile's columns straddle windows or sequences
+    "s33": (300, 11, 3, 100, 2, 1, 37, None),
+    "s17": (300, 17, 1, 100, 2, 0, 40, None),
+    "s5": (300, 5, 1, 37, 3, 0, 50, [0, 1, 5, 36]),
+}
+
+
+def _acf_slab(cuda, frames, particles, dims, seed=0):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return torch.randn((frames, particles, dims), device=cuda, generator=g)
+
+
+@pytest.mark.parametrize("case", list(ACF_PACKS))
+def test_acf_pack_equals_plain(cuda, case):
+    from lammps_analysis_tpu_torch.ops import correlation
+
+    frames, particles, dims, window, stride, c0, n, tau = ACF_PACKS[case]
+    x = _acf_slab(cuda, frames, particles, dims)
+    lags = None if tau is None else correlation.lag_table(tau, window, cuda)
+    r = window if tau is None else len(tau)
+    fft_len = correlation._next_fast_len(2 * r)
+    out = None
+    if case == "ragged":  # the buffer of the call's first, full batch
+        out = correlation.acf_pack(x, window, stride, 0, 32, fft_len, lags)
+    packed = correlation.acf_pack(x, window, stride, c0, n, fft_len, lags, out=out)
+    plain = correlation.acf_pack_reference(x, window, stride, c0, n, fft_len, lags)
+    assert packed.shape == plain.shape == (n, particles * dims, fft_len) and packed.is_contiguous()
+    assert torch.equal(packed, plain)
+
+
+def test_acf_pack_zero_tail_survives_reuse_and_the_r2c(cuda):
+    """A buffer through two batches and two forward FFTs: its tail stays 0
+    (cuFFT's out-of-place R2C leaves its input as it was), and each batch's
+    values and spectrum equal the plain version's."""
+    from lammps_analysis_tpu_torch.ops import correlation
+
+    x = _acf_slab(cuda, 700, 400, 3, seed=1)
+    buf = correlation.acf_pack(x, 500, 5, 0, 32, 1024)
+    for c0, n in ((0, 32), (32, 5)):
+        packed = correlation.acf_pack(x, 500, 5, c0, n, 1024, out=buf)
+        spec = torch.fft.rfft(packed, n=1024, dim=-1)
+        plain = correlation.acf_pack_reference(x, 500, 5, c0, n, 1024)
+        assert torch.equal(packed, plain)
+        assert torch.equal(spec, torch.fft.rfft(plain, n=1024, dim=-1))
+    assert not bool(buf[..., 500:].any())
+
+
+#: (windows, sequences, bins): GK self-diffusion's batch with fewer ions, a
+#: system series, ragged chunks and several column tiles
+ACF_POWERS = [(8, 4800, 513), (1501, 3, 513), (5, 333, 129), (3, 1000, 2049), (2, 70, 1)]
+
+
+@pytest.mark.parametrize("shape", ACF_POWERS, ids=lambda s: "x".join(map(str, s)))
+def test_acf_power_sum_matches_plain_and_repeats(cuda, shape):
+    from lammps_analysis_tpu_torch.ops import correlation
+
+    g = torch.Generator(device="cuda").manual_seed(sum(shape))
+    spec = torch.randn(shape, dtype=torch.complex64, device=cuda, generator=g)
+    power = correlation.acf_power_sum(spec)
+    again = correlation.acf_power_sum(spec)
+    plain = correlation.acf_power_sum_reference(spec.clone())
+    assert power.dtype == torch.float64 and power.shape == shape[::2]
+    assert torch.equal(power, again)
+    assert float(((power - plain).abs() / plain).max()) <= 1e-12
+
+
+def test_windowed_acf_on_the_card_takes_the_kernels(cuda):
+    """A call of four batches, and one of two with a lag table: no plain
+    batch, one pack and one power-sum launch a batch, and the CPU's result
+    within float32 FFTs' rounding (2e-6 of the lag-0 value)."""
+    from lammps_analysis_tpu_torch.ops import correlation
+
+    x = _acf_slab(cuda, 300, 50, 3, seed=2)
+    budget = 10 * 50 * 3 * 128 * 16  # 10 windows a batch at R 50
+    for tau in (None, list(range(0, 50, 3))):
+        before = counters.copy()
+        s, per_window = correlation.windowed_acf_sum(x, 50, 7, budget, tau=tau)
+        delta = counters - before
+        batches = delta["acf.batches"]
+        assert batches == (4 if tau is None else 2) and delta["acf.plain"] == 0
+        assert delta["acf.pack.launches"] == delta["acf.power.launches"] == batches
+        s_cpu, per_window_cpu = correlation.windowed_acf_sum(x.cpu(), 50, 7, budget, tau=tau)
+        torch.testing.assert_close(s.cpu(), s_cpu, rtol=0, atol=2e-6 * float(s_cpu[0]))
+        torch.testing.assert_close(per_window.cpu(), per_window_cpu, rtol=0,
+                                   atol=2e-6 * float(per_window_cpu[:, 0].max()))
